@@ -4,89 +4,56 @@ Replaces the TPU kernel of soft_intro_vae_tpu/ops/chamfer_pallas.py
 (``_nearest`` -> ``_min_kernel``), one launch per direction; the source's
 header says what bounds it and how it is laid out.
 
-Build: ``nvcc`` compiles the source into a shared library with a plain C
-interface under ``soft_intro_vae_torch/_build/``, keyed by a hash of the
-source and the flags, and ``ctypes`` loads it. That happens on the first call
-with a CUDA tensor, never at import. A build or launch failure raises; there
-is no fallback to the plain version.
+Build: ``ops/cuda_build.py`` compiles the source with ``nvcc`` into a shared
+library with a plain C interface under ``soft_intro_vae_torch/_build/``,
+keyed by a hash of the source and the flags, and ``ctypes`` loads it. That
+happens on the first call with a CUDA tensor, never at import. A build or
+launch failure raises; there is no fallback to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import threading
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
+from soft_intro_vae_torch.ops import cuda_build
+
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "chamfer_nearest.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+_BUILD_DIR = cuda_build.BUILD_DIR
 
 # kernel launches made by ``nearest_cuda``; a run sets it to 0 and reads it
 # back to show which path went through the kernel
 launches = 0
 
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
+
+def spec() -> cuda_build.Spec:
+    """The build of this kernel: (source, library stem, extra nvcc flags)."""
+    return (_SRC, "chamfer_nearest", ())
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; it is needed to build "
-                       f"{_SRC}")
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.chamfer_nearest_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.chamfer_nearest_launch.restype = ctypes.c_int
+    lib.chamfer_error_string.argtypes = [ctypes.c_int]
+    lib.chamfer_error_string.restype = ctypes.c_char_p
+
+
+_library = cuda_build.Library(spec, _declare)
 
 
 def library_path() -> str:
     """Where the built library for the current source and flags lives."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(_BUILD_DIR, f"libchamfer_nearest_{digest}.so")
-
-
-def build() -> str:
-    """Compile the kernel if no library for this source exists; return its path."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a process building at the same time never loads half a file
-    with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    return out
+    return cuda_build.library_path(*spec())
 
 
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the library once per process."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            lib.chamfer_nearest_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            lib.chamfer_nearest_launch.restype = ctypes.c_int
-            lib.chamfer_error_string.argtypes = [ctypes.c_int]
-            lib.chamfer_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    return _library.load()
 
 
 def _check_cloud(name: str, t: torch.Tensor) -> None:

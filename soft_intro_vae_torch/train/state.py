@@ -48,3 +48,17 @@ class TrainState:
         self.lr_e, self.lr_d = lr_e, lr_d
         optim.set_lr(self.opt_e, lr_e)
         optim.set_lr(self.opt_d, lr_d)
+
+    def state_dict(self) -> dict:
+        """The checkpoint payload; ``model`` is in the reference's names."""
+        return {"model": self.model.state_dict(), "opt_e": self.opt_e.state_dict(),
+                "opt_d": self.opt_d.state_dict(), "step": self.step, "lr_e": self.lr_e,
+                "lr_d": self.lr_d, "rng": self.generator.get_state()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.model.load_state_dict(sd["model"])
+        self.opt_e.load_state_dict(sd["opt_e"])
+        self.opt_d.load_state_dict(sd["opt_d"])
+        self.generator.set_state(sd["rng"])
+        self.step = int(sd["step"])
+        self.set_lr(float(sd["lr_e"]), float(sd["lr_d"]))

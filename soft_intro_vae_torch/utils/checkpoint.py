@@ -1,54 +1,58 @@
-"""Checkpoints of the 3D trainer (port of utils/checkpoint.py).
+"""Checkpoints of the port's trainers (port of utils/checkpoint.py).
 
-One ``torch.save`` file per checkpoint, named as the JAX trainer names them
-(``model_epoch_{E}_iter_{I}{tag}.ckpt``, with the ``last_checkpoint``
-pointer beside them and the reference's find-latest-epoch fallback,
-train_soft_intro_vae_3d.py:444-449). The payload is
+One ``torch.save`` file per checkpoint, named as the JAX trainers name them
+(``{prefix}model_epoch_{E}_iter_{I}{tag}.ckpt``), with the ``last_checkpoint``
+pointer beside them and the reference's find-latest-epoch fallback
+(train_soft_intro_vae_3d.py:444-449). The payload is the train state's
+``state_dict()`` plus ``epoch`` and ``iteration``:
 
-    {"model": state_dict in reference names, "opt_e", "opt_d",
-     "epoch", "step", "lr_e", "lr_d", "rng": generator state}
+  * 3D (``train.state.TrainState``): {"model": state_dict in reference
+    names, "opt_e", "opt_d", "step", "lr_e", "lr_d", "rng"}, so the
+    ``model`` entry loads into the reference's nets, and into the JAX package
+    through its ``load_reference_3d_checkpoint``;
+  * style (``train.style_step.StyleTrainState``): {"nets", "ema", "opt_e",
+    "opt_d", "step", "lr", "ema_beta", "rng"}.
 
-so the ``model`` entry loads into the reference's nets, and into the JAX
-package through its ``load_reference_3d_checkpoint``.
+``aux`` is JSON-serialisable host-side training state (tracker history,
+LODs seen, whether the epoch completed) written to a ``.aux.json`` sidecar,
+as the JAX Checkpointer writes it (the reference Checkpointer's auxiliary
+dict, checkpointer.py:23-36). Saves are synchronous: the state lives on the
+device, and copying it to the host is most of a save's work.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
-
-from soft_intro_vae_torch.train.state import TrainState
 
 
 class Checkpointer:
     POINTER = "last_checkpoint"
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, prefix: str = ""):
         self.directory = directory
+        self.prefix = prefix
         os.makedirs(directory, exist_ok=True)
 
     def _path(self, epoch: int, iteration: int, tag: str = "") -> str:
-        name = f"model_epoch_{epoch}_iter_{iteration}{tag}.ckpt"
+        name = f"{self.prefix}model_epoch_{epoch}_iter_{iteration}{tag}.ckpt"
         return os.path.join(self.directory, name)
 
-    def save(self, state: TrainState, epoch: int, iteration: int = 0, tag: str = "") -> str:
+    def save(self, state: Any, epoch: int, iteration: int = 0, tag: str = "",
+             aux: Optional[dict] = None) -> str:
         path = self._path(epoch, iteration, tag)
-        payload = {
-            "model": state.model.state_dict(),
-            "opt_e": state.opt_e.state_dict(),
-            "opt_d": state.opt_d.state_dict(),
-            "epoch": epoch,
-            "step": state.step,
-            "lr_e": state.lr_e,
-            "lr_d": state.lr_d,
-            "rng": state.generator.get_state(),
-        }
+        payload = {**state.state_dict(), "epoch": epoch, "iteration": iteration}
         tmp = path + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)
+        if aux is not None:
+            with open(path + ".aux.json.tmp", "w") as f:
+                json.dump(aux, f)
+            os.replace(path + ".aux.json.tmp", path + ".aux.json")
         with open(os.path.join(self.directory, self.POINTER), "w") as f:
             f.write(os.path.basename(path))
         return path
@@ -72,17 +76,19 @@ class Checkpointer:
                         best, best_key = os.path.join(self.directory, name), key
         return best
 
-    def load_latest(self, state: TrainState) -> Optional[Tuple[TrainState, int]]:
+    def load_latest(self, state: Any) -> Optional[Tuple[Any, int]]:
         """Restore the latest checkpoint into ``state`` in place; returns
         (state, epoch), or None when there is none."""
         path = self.latest_path()
         if path is None:
             return None
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        state.model.load_state_dict(payload["model"])
-        state.opt_e.load_state_dict(payload["opt_e"])
-        state.opt_d.load_state_dict(payload["opt_d"])
-        state.generator.set_state(payload["rng"])
-        state.step = int(payload["step"])
-        state.set_lr(float(payload["lr_e"]), float(payload["lr_d"]))
+        state.load_state_dict(payload)
         return state, int(payload["epoch"])
+
+    def latest_aux(self) -> Optional[dict]:
+        path = self.latest_path()
+        if path is None or not os.path.exists(path + ".aux.json"):
+            return None
+        with open(path + ".aux.json") as f:
+            return json.load(f)

@@ -1,8 +1,10 @@
-"""Weights carried across from the JAX package's PointNet trees.
+"""Weights carried across from the JAX package's parameter trees.
 
-The inverse of ``convert_pointnet_encoder``/``convert_pointnet_decoder`` in
-soft_intro_vae_tpu/utils/torch_compat.py:143-192. It takes the trees as plain
-numpy arrays (nested dicts), so nothing here imports JAX.
+The inverses of ``convert_pointnet_encoder``/``convert_pointnet_decoder``
+(soft_intro_vae_tpu/utils/torch_compat.py:143-192) and of
+``convert_style_encoder``/``convert_style_generator``/``convert_mapping``
+(:264-321). They take the trees as plain numpy arrays (nested dicts), so
+nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -58,4 +60,75 @@ def pointnet_state_dict_from_jax(params_e: Mapping, stats_e: Mapping,
     j = n * 3 + c
     _linear(sd, f"decoder.model.{2 * n_hidden}",
             {"kernel": kernel[:, j], **({"bias": np.asarray(out["bias"])[j]} if "bias" in out else {})})
+    return sd
+
+
+def _conv_oihw(kernel) -> torch.Tensor:
+    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))  # HWIO -> (out, in, kh, kw)
+
+
+def _conv_t_iohw(kernel) -> torch.Tensor:
+    return _t(np.asarray(kernel).transpose(2, 3, 0, 1))  # HWIO -> (in, out, kh, kw)
+
+
+def _plane_param(p) -> torch.Tensor:
+    return _t(np.asarray(p).reshape(1, -1, 1, 1))  # (C,) -> (1, C, 1, 1)
+
+
+def _lreq_linear(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    sd[name + ".weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[name + ".bias"] = _t(p["bias"])
+
+
+def _lreq_conv(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    sd[name + ".weight"] = _conv_oihw(p["kernel"])
+    if "bias" in p:
+        sd[name + ".bias"] = _t(p["bias"])
+
+
+def style_state_dict_from_jax(params_e: Mapping, params_d: Mapping,
+                              buffers: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX StyleModel trees -> the port's ``StyleNets`` state_dict.
+
+    params_e = {"encoder", "mapping_tl"}, params_d = {"decoder",
+    "mapping_fl"}, buffers = {"dlatent_avg"}. Both packages store lreq
+    weights in explicit mode (raw weight, scaled at forward time), so unlike
+    the reference converters nothing is divided by the lreq std: only layouts
+    change. HWIO -> (out, in, kh, kw) for convs and (in, out, kh, kw) for the
+    fused-upscale transposed convs; Dense (in, out) -> Linear (out, in);
+    (C,) biases and noise weights -> (1, C, 1, 1); const NHWC -> NCHW.
+    """
+    sd: Dict[str, torch.Tensor] = {}
+    enc = params_e["encoder"]
+    n_enc = sum(1 for k in enc if k.startswith("block_"))
+    for i in range(n_enc):
+        _lreq_conv(sd, f"encoder.from_rgb.{i}.from_rgb", enc[f"from_rgb_{i}"]["from_rgb"])
+        blk, name = enc[f"block_{i}"], f"encoder.encode_block.{i}"
+        _lreq_conv(sd, name + ".conv_1", blk["conv_1"])
+        sd[name + ".bias_1"] = _plane_param(blk["bias_1"])
+        _lreq_conv(sd, name + ".conv_2", blk["conv_2"])
+        sd[name + ".bias_2"] = _plane_param(blk["bias_2"])
+        _lreq_linear(sd, name + ".style_1", blk["style_1"])
+        _lreq_linear(sd, name + ".style_2", blk["style_2"])
+
+    dec = params_d["decoder"]
+    sd["decoder.const"] = _t(np.asarray(dec["const"]).transpose(0, 3, 1, 2))
+    n_dec = sum(1 for k in dec if k.startswith("block_"))
+    for i in range(n_dec):
+        blk, name = dec[f"block_{i}"], f"decoder.decode_block.{i}"
+        if "conv_1" in blk:
+            fused = 2 ** (i + 2) >= 128  # StyleGenerator: resolution * 2 >= 128
+            conv = _conv_t_iohw if fused else _conv_oihw
+            sd[name + ".conv_1.weight"] = conv(blk["conv_1"]["kernel"])
+        for k in ("noise_weight_1", "bias_1", "noise_weight_2", "bias_2"):
+            sd[f"{name}.{k}"] = _plane_param(blk[k])
+        _lreq_linear(sd, name + ".style_1", blk["style_1"])
+        _lreq_conv(sd, name + ".conv_2", blk["conv_2"])
+        _lreq_linear(sd, name + ".style_2", blk["style_2"])
+        _lreq_conv(sd, f"decoder.to_rgb.{i}.to_rgb", dec[f"to_rgb_{i}"]["to_rgb"])
+
+    for tree, name in ((params_e["mapping_tl"], "mapping_tl"), (params_d["mapping_fl"], "mapping_fl")):
+        for i in range(len(tree)):
+            _lreq_linear(sd, f"{name}.map_blocks.{i}.fc", tree[f"block_{i + 1}"])
+    sd["dlatent_avg.buff"] = _t(buffers["dlatent_avg"])
     return sd

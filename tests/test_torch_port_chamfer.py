@@ -18,6 +18,7 @@ import torch
 
 from soft_intro_vae_tpu.ops.chamfer_pallas import _nearest, chamfer_distance_pallas
 from soft_intro_vae_torch.ops import chamfer, chamfer_cuda
+from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 
 # (B, N_preds, M_gts, pallas tile) — the cases of tests/test_chamfer_pallas.py
 CASES = [(2, 64, 64, 32), (3, 48, 96, 16), (1, 24, 24, 256), (2, 32, 40, 16), (4, 128, 128, 64)]

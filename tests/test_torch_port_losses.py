@@ -11,6 +11,7 @@ import torch
 
 from soft_intro_vae_tpu.ops import losses as jl
 from soft_intro_vae_torch.ops import losses as tl
+from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 

@@ -19,6 +19,7 @@ from soft_intro_vae_tpu.models.pointnet import PointNetEncoder as JaxEncoder
 from soft_intro_vae_tpu.utils.torch_compat import convert_pointnet_decoder, convert_pointnet_encoder
 from soft_intro_vae_torch.models.pointnet import SoftIntroVAE3D
 from soft_intro_vae_torch.utils.from_jax import pointnet_state_dict_from_jax
+from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 
 B, N, Z = 4, 16, 8
 

@@ -39,6 +39,7 @@ from soft_intro_vae_torch.models.pointnet import SoftIntroVAE3D
 from soft_intro_vae_torch.train.state import TrainState
 from soft_intro_vae_torch.train.step import INTRO_NOISES, StepConfig, build_train_steps
 from soft_intro_vae_torch.utils.from_jax import pointnet_state_dict_from_jax
+from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 
 B, N, Z = 4, 32, 8
 LR = 5e-4

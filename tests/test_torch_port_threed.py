@@ -25,6 +25,7 @@ from soft_intro_vae_torch.train.threed import (
     ThreeDConfig, build_3d_training, calc_jsd_valid, train_soft_intro_vae_3d)
 from soft_intro_vae_torch.utils.checkpoint import Checkpointer
 from soft_intro_vae_torch.utils.device import resolve_device
+from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HP_JSON = os.path.join(REPO, "configs", "soft_intro_vae_hp.json")
