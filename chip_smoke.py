@@ -13,7 +13,8 @@ Phases, each printing one line; any failure exits non-zero:
               version's, a library call's where one exists and the card's
               lower bound: the chamfer search (bit-equal), and the fused
               bias/leaky-ReLU/instance-norm/AdaIN forward and backward in
-              every mode, f32 and bf16;
+              every mode, f32 and bf16, at every LOD-6 site shape (each with
+              its launch plan; two launches bit-equal);
   4. train 3d: ``train_soft_intro_vae_3d`` at the full width of
               configs/soft_intro_vae_hp.json (2048 points, batch 32, z 128) on
               synthetic clouds for one intro epoch plus the valid JSD, every
@@ -24,7 +25,10 @@ Phases, each printing one line; any failure exits non-zero:
               bf16) at LOD 6 (256x256, batch 4) on synthetic images, one
               vanilla and one intro epoch, every kernel's launch count read
               around it and held to the count the steps imply;
-  6. step style: ms per LOD-6 intro step after warm-up;
+  6. step style: ms per LOD-6 intro step after warm-up; the first warm-up
+              step records its fused-norm launches by site, and each site is
+              then timed alone in bf16 and f32: per-step kernel ms against the
+              per-step bound;
   7. routes style: one f32 intro step through the kernels against one
               through the plain version, from the same weights and draws;
   8. transition style: LOD 0 -> 1 through a blended epoch.
@@ -219,6 +223,11 @@ def phase_build() -> str:
 
 # fused-norm cases: the ffhq256 LOD-6 extremes and an odd shape, in every mode
 NORM_SHAPES = ((4, 64, 256, 256), (4, 512, 4, 4), (4, 512, 2, 2), (3, 5, 7, 9))
+# the norm sites of the ffhq256 LOD-6 intro step (models/style.py, startf 64,
+# maxf 512, batch 4); phase_style_step holds this list to the step's launches
+SITE_SHAPES = ((4, 64, 256, 256), (4, 128, 128, 128), (4, 256, 64, 64), (4, 512, 32, 32),
+               (4, 512, 16, 16), (4, 512, 8, 8), (4, 512, 4, 4), (4, 512, 2, 2))
+CHECK_SHAPES = tuple(dict.fromkeys(NORM_SHAPES + SITE_SHAPES))
 NORM_MODES = (("plain", False), ("noise", True), ("corr", True))
 # Tolerances, kernel against bias_act_norm_plain on the same inputs on the card:
 #  * f32: sums (moments, sum(dy), sum(dy*ehat), the parameter gradients) are
@@ -262,13 +271,33 @@ def _norm_err(name, k, p, low_precision: bool):
     return float(diff.max()), float(diff.max()) / scale
 
 
+def plan_line(shape) -> str:
+    import torch
+
+    from soft_intro_vae_torch.ops import adain_cuda
+
+    bsz, ch, h, w = shape
+    parts = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for direction in adain_cuda.DIRECTIONS:
+            p = adain_cuda.plan(bsz, ch, h * w, dtype, direction)
+            parts.append(f"{str(dtype)[6:]} {direction} {p.tier} k={p.planes_per_cta} "
+                         f"G={p.lanes} Q={p.cluster} T={p.threads} E={p.slice} unit={p.unit} "
+                         f"smem={p.smem} grid={p.grid}")
+    return f"plan {tuple(shape)}: " + "; ".join(parts)
+
+
 def phase_norm_kernels(device):
-    """bias_act_norm forward and backward kernels against their plain versions."""
+    """bias_act_norm forward and backward kernels against their plain versions,
+    and each against itself: two launches on the same inputs give the same bits."""
     import torch
     import torch.nn.functional as F
 
     from soft_intro_vae_torch.ops import adain, adain_cuda
+    from tools.torch_norm_sites import device_ms, norm_bytes
 
+    for shape in CHECK_SHAPES:
+        print(plan_line(shape), flush=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     kw = dict(eps=1e-8, slope=0.2, corr_scale=2.0)
@@ -280,33 +309,40 @@ def phase_norm_kernels(device):
 
     for dtype in (torch.float32, torch.bfloat16):
         low = dtype == torch.bfloat16
-        for shape in NORM_SHAPES:
+        for shape in CHECK_SHAPES:
             for mode, affine in NORM_MODES:
                 x, a, cot = _norm_inputs(gen, shape, mode, affine, dtype, device)
                 case = f"{mode}{'/affine' if affine else ''} {tuple(shape)} {dtype}"
                 fk = adain_cuda.forward(x, a["bias"], a["g"], a["b"], a["n"], a["nw"],
                                         mode=mode, **kw)
+                fk2 = adain_cuda.forward(x, a["bias"], a["g"], a["b"], a["n"], a["nw"],
+                                         mode=mode, **kw)
                 fp = adain.bias_act_norm_plain(x, a["bias"], a["g"], a["b"], a["n"], a["nw"],
                                                mode=mode, **kw)
                 torch.cuda.synchronize()
                 check(fk[0].dtype == dtype, f"forward {case}: y is {fk[0].dtype}")
+                check(all(torch.equal(p, q) for p, q in zip(fk, fk2)),
+                      f"forward {case}: two launches differ")
                 for name, k, p, lp in zip(("y", "m", "v"), fk, fp, (low, False, False)):
                     note("fwd", _norm_err(f"forward {case} {name}", k, p, lp))
                 m, v = fp[1], fp[2]
-                bk = adain_cuda.backward(cot["dy"], x, a["bias"], a["g"], a["n"], a["nw"], m, v,
-                                         cot["dm"], cot["dv"], mode=mode, **kw)
+                bargs = (cot["dy"], x, a["bias"], a["g"], a["n"], a["nw"], m, v, cot["dm"],
+                         cot["dv"])
+                bk = adain_cuda.backward(*bargs, mode=mode, **kw)
+                bk2 = adain_cuda.backward(*bargs, mode=mode, **kw)
                 bp = adain.bias_act_norm_backward_plain(x, a["bias"], a["g"], a["n"], a["nw"],
                                                         m, v, cot["dy"], cot["dm"], cot["dv"],
                                                         mode=mode, **kw)
                 torch.cuda.synchronize()
+                check(all(torch.equal(p, q) for p, q in zip(bk, bk2)),
+                      f"backward {case}: two launches differ")
                 names = ("dx", "d_bst", "d_g", "d_bias", "d_nw")
                 for name, k, p, lp in zip(names, bk, bp, (low, False, False, False, False)):
                     note("bwd", _norm_err(f"backward {case} {name}", k, p, lp))
-                del x, a, cot, fk, fp, bk, bp
+                del x, a, cot, fk, fk2, fp, bk, bk2, bp
 
     # times at the decoder's top site in training (noise + AdaIN), 4x64x256x256
     shape = NORM_SHAPES[0]
-    bsz, ch, h, w = shape
     times = {}
     for dtype in (torch.bfloat16, torch.float32):
         x, a, cot = _norm_inputs(gen, shape, "noise", True, dtype, device)
@@ -330,30 +366,45 @@ def phase_norm_kernels(device):
             adain.bias_act_norm_backward_plain(x, a["bias"], a["g"], a["n"], a["nw"], m, v,
                                                cot["dy"], cot["dm"], cot["dv"], mode="noise", **kw)
 
-        before = (adain_cuda.launches_fwd, adain_cuda.launches_bwd)
         t = {}
-        # turns: plain, kernel, kernel, plain; the mean of each pair
-        t["fwd_plain"] = [cuda_ms(fwd_p, iters=5)]
-        t["fwd"] = [cuda_ms(fwd_k), cuda_ms(fwd_k)]
-        t["fwd_plain"].append(cuda_ms(fwd_p, iters=5))
-        t["bwd_plain"] = [cuda_ms(bwd_p, iters=5)]
-        t["bwd"] = [cuda_ms(bwd_k), cuda_ms(bwd_k)]
-        t["bwd_plain"].append(cuda_ms(bwd_p, iters=5))
-        t["nearest"] = [cuda_ms(lambda: F.instance_norm(e, eps=1e-8))]
-        # these comparison launches do not count for the main path
-        adain_cuda.launches_fwd, adain_cuda.launches_bwd = before
+        # device time, calls queued behind a sleep; turns: plain, kernel,
+        # kernel, plain; the mean of each pair
+        t["fwd_plain"] = [device_ms(fwd_p, iters=5)]
+        t["fwd"] = [device_ms(fwd_k), device_ms(fwd_k)]
+        t["fwd_plain"].append(device_ms(fwd_p, iters=5))
+        t["bwd_plain"] = [device_ms(bwd_p, iters=5)]
+        t["bwd"] = [device_ms(bwd_k), device_ms(bwd_k)]
+        t["bwd_plain"].append(device_ms(bwd_p, iters=5))
+        t["nearest"] = [device_ms(lambda: F.instance_norm(e, eps=1e-8))]
+        # calls one after another, the wrapper's host time included
+        t["fwd_calls"] = [cuda_ms(fwd_k)]
+        t["bwd_calls"] = [cuda_ms(bwd_k)]
         size = x.element_size()
-        n_bytes = bsz * h * w * 4
         times[str(dtype).replace("torch.", "")] = {
             k: sum(vals) / len(vals) for k, vals in t.items()} | {
-            "fwd_bytes": 2 * x.numel() * size + n_bytes,
-            "bwd_bytes": 3 * x.numel() * size + n_bytes,
+            "fwd_bytes": norm_bytes("fwd", shape, "noise", True, size),
+            "bwd_bytes": norm_bytes("bwd", shape, "noise", True, size),
             "runs": t}
         del x, a, cot, e, m, v
     return worst, times
 
 
-def norm_records(worst, times, peaks):
+def phase_norm_sites(device, mix, peaks):
+    """Each fused-norm site of one LOD-6 intro step, timed alone in the mode
+    and eps the step runs it, in bf16 and f32, then summed over the step with
+    the launches ``mix`` recorded: per-step kernel ms against per-step bound."""
+    from tools.torch_norm_sites import row_line, time_sites, totals_line
+
+    rows, totals = time_sites(device, mix, peaks[1])
+    for row in rows:
+        print(f"norm site: {row_line(row)}", flush=True)
+    print(f"norm sites per LOD-6 intro step (each site timed alone, device time of 20 "
+          f"queued launches after 3 warm-up; bound by bytes at {peaks[1] / 1e12:.2f} TB/s): "
+          f"{totals_line(totals)}", flush=True)
+    return totals
+
+
+def norm_records(worst, times, peaks, totals):
     """The two fused-norm kernels' entries of the JSON line (times in bf16)."""
     bf = times["bfloat16"]
     recs = []
@@ -372,6 +423,8 @@ def norm_records(worst, times, peaks):
             "library_ms": None,  # no single PyTorch call computes the fused chain
             "dtype": "bfloat16",
             "shape": list(NORM_SHAPES[0]),
+            "step_ms": totals[("bfloat16", key)][0],
+            "step_bound_ms": totals[("bfloat16", key)][1],
         })
     return recs
 
@@ -386,13 +439,16 @@ def norm_line(worst, times, peaks) -> str:
             f"{t['runs']['bwd'][1]:.4f} ms, plain {t['runs']['bwd_plain'][0]:.4f}/"
             f"{t['runs']['bwd_plain'][1]:.4f} ms, bound {t['bwd_bytes'] / peaks[1] * 1e3:.4f} ms; "
             f"nearest PyTorch call (F.instance_norm alone, not the fused chain) "
-            f"{t['nearest']:.4f} ms")
+            f"{t['nearest']:.4f} ms; calls back to back (host overhead included) fwd "
+            f"{t['fwd_calls']:.4f} ms, bwd {t['bwd_calls']:.4f} ms")
     return (f"kernels: bias_act_norm fwd/bwd agree with bias_act_norm_plain/"
-            f"bias_act_norm_backward_plain at {list(NORM_SHAPES)} x {[m for m, _ in NORM_MODES]} "
-            f"x f32/bf16 (worst max|diff| fwd {worst['fwd']:.3g}, bwd {worst['bwd']:.3g}; "
+            f"bias_act_norm_backward_plain at {list(CHECK_SHAPES)} x "
+            f"{[m for m, _ in NORM_MODES]} x f32/bf16, and two launches on the same inputs are "
+            f"bit-equal (worst max|diff| fwd {worst['fwd']:.3g}, bwd {worst['bwd']:.3g}; "
             f"as a share of the tensor's max|ref| fwd {worst['fwd_rel']:.3g}, bwd "
             f"{worst['bwd_rel']:.3g}; tolerance {NORM_RTOL:g} of the tensor's scale, plus one bf16 "
-            f"ulp per element in bf16); times at {NORM_SHAPES[0]} noise+AdaIN: " + "; ".join(parts)
+            f"ulp per element in bf16); device times (calls queued behind a sleep kernel) at "
+            f"{NORM_SHAPES[0]} noise+AdaIN: " + "; ".join(parts)
             + f" (bound by bytes at {peaks[1] / 1e12:.2f} TB/s)")
 
 
@@ -603,13 +659,45 @@ def _style_intro(cfg, noise_mode="batch"):
     return state, intro
 
 
+@contextlib.contextmanager
+def recording_norm_launches(mix):
+    """Counts every fused-norm kernel call by (direction, shape, mode, affine, eps)."""
+    from soft_intro_vae_torch.ops import adain_cuda
+
+    fwd, bwd = adain_cuda.forward, adain_cuda.backward
+
+    def rec_fwd(x, bias, g=None, b=None, n=None, nw=None, **kw):
+        mix[("fwd", tuple(x.shape), kw["mode"], g is not None, kw["eps"])] += 1
+        return fwd(x, bias, g, b, n, nw, **kw)
+
+    def rec_bwd(dy, x, bias, g, *args, **kw):
+        mix[("bwd", tuple(x.shape), kw["mode"], g is not None, kw["eps"])] += 1
+        return bwd(dy, x, bias, g, *args, **kw)
+
+    adain_cuda.forward, adain_cuda.backward = rec_fwd, rec_bwd
+    try:
+        yield mix
+    finally:
+        adain_cuda.forward, adain_cuda.backward = fwd, bwd
+
+
 def phase_style_step(device, card: str, cfg):
-    """ms per LOD-6 intro step after warm-up: median of three 10-step windows."""
+    """ms per LOD-6 intro step after warm-up: median of three 10-step windows.
+    The first warm-up step records the step's fused-norm launches by site."""
+    import collections
+
     import torch
 
     state, intro = _style_intro(cfg)
     batches = _style_batches(cfg, device, 4)
-    for i in range(3):
+    with recording_norm_launches(collections.Counter()) as mix:
+        state, m = intro(state, batches[0])
+    want = style_step_launches(cfg.layer_count - 1, 0, 1)
+    got = tuple(sum(v for k, v in mix.items() if k[0] == d) for d in ("fwd", "bwd"))
+    check(got == want, f"one intro step launched {got} fused-norm kernels, expected {want}")
+    sites = sorted({k[1] for k in mix}, key=lambda s: -s[2])
+    check(sites == list(SITE_SHAPES), f"the step's norm sites {sites} are not {SITE_SHAPES}")
+    for i in range(1, 3):
         state, m = intro(state, batches[i % 4])
     windows = []
     for _ in range(TIMED_WINDOWS):
@@ -628,7 +716,7 @@ def phase_style_step(device, card: str, cfg):
           f"on {card}", flush=True)
     del state, intro, batches
     torch.cuda.empty_cache()
-    return ms_step
+    return ms_step, mix
 
 
 def phase_style_routes(device, cfg):
@@ -715,12 +803,13 @@ def main() -> int:
         counts_3d = phase_train_3d(device, card, results_dir)
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         cfg, counts_style = phase_style_train(device, card, results_dir)
-    phase_style_step(device, card, cfg)
+    _, mix = phase_style_step(device, card, cfg)
+    totals = phase_norm_sites(device, mix, peaks)
     phase_style_routes(device, cfg)
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_style_transition(device, results_dir)
     chamfer["launches"] = counts_3d["chamfer_nearest"]
-    records = [chamfer] + norm_records(worst, times, peaks)
+    records = [chamfer] + norm_records(worst, times, peaks, totals)
     for rec in records[1:]:
         rec["launches"] = counts_style[rec["name"]]
     print(json.dumps({"kernels": records}), flush=True)
