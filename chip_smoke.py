@@ -11,7 +11,8 @@ Phases, each printing one line; any failure exits non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and at odd ones, plus its time, the plain
               version's, a library call's where one exists and the card's
-              lower bound: the chamfer search (bit-equal), and the fused
+              lower bound: the chamfer search, both directions in one
+              launch (bit-equal, also on tie-heavy clouds), and the fused
               bias/leaky-ReLU/instance-norm/AdaIN forward and backward in
               every mode, f32 and bf16, at every LOD-6 site shape (each with
               its launch plan; two launches bit-equal);
@@ -111,30 +112,64 @@ def clouds(gen, b: int, n: int, m: int, device):
     return a, c
 
 
+def tie_clouds(gen, b: int, n: int, m: int, device):
+    """Clouds full of equal distances: coordinates on a coarse grid, and y
+    drawn from 24 distinct points, each repeated at indices spread over every
+    cluster rank."""
+    import torch
+
+    a = torch.round(torch.randn((b, n, 3), generator=gen, device=device) * 4.0) / 8.0
+    base = torch.round(torch.randn((b, 24, 3), generator=gen, device=device) * 4.0) / 8.0
+    pick = torch.randint(0, 24, (b, m), generator=gen, device=device)
+    return a, torch.gather(base, 1, pick[..., None].expand(-1, -1, 3)).contiguous()
+
+
+# chamfer cases (B, N, M): the recipe's shape, the JAX package's test shapes,
+# N below one warp's rows and one x pass, M % 4 != 0 (scalar staging), M
+# smaller than one slice, several x passes, many slices (bulk and scalar),
+# more items than CTAs, slices streamed in chunks (bulk, scalar, 8 warps)
+CHAMFER_CASES = ((32, 2048, 2048), (3, 48, 96), (1, 24, 24), (2, 2047, 1000), (1, 1, 1),
+                 (2, 5, 300), (3, 100, 1001), (2, 3000, 7), (2, 5000, 2048), (1, 300, 40000),
+                 (1, 600, 40001), (300, 24, 100), (133, 64, 5000), (133, 64, 5001),
+                 (133, 1800, 1600))
+# tie-heavy cases: the recipe's shape, N % 8 != 0 and M % 4 != 0
+TIE_CASES = ((32, 2048, 2048), (2, 333, 1001))
+
+
 def phase_kernels(device, peak_name, peaks):  # the chamfer kernel
-    """chamfer_nearest against nearest_plain: equal minima and argmins both ways."""
+    """chamfer_nearest (one launch, both directions) bit-equal to
+    nearest_pair_plain: minima and argmins, both directions, at every case;
+    two launches bit-equal."""
     import torch
 
     from soft_intro_vae_torch.ops import chamfer, chamfer_cuda
+    from tools.torch_chamfer_times import (
+        PAIR_INSTRUCTIONS, PAIR_INSTRUCTIONS_FMA, bound_ms, sass_slots_per_pair)
+    from tools.torch_norm_sites import device_ms
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    cases = [(32, 2048, 2048), (3, 48, 96), (1, 24, 24), (2, 2047, 1000)]
-    pairs = [clouds(gen, *c, device) for c in cases]
+    pairs = [clouds(gen, *c, device) for c in CHAMFER_CASES]
     same = clouds(gen, 2, 512, 512, device)[0]
     pairs.append((same, same.clone()))
+    pairs += [tie_clouds(gen, *c, device)[::-1] for c in TIE_CASES]
     max_err = 0.0
+    names = ("min_x", "amin_x", "min_y", "amin_y")
     for preds, gts in pairs:
-        for a, b in ((gts, preds), (preds, gts)):
-            d_k, i_k = chamfer_cuda.nearest_cuda(a, b)
-            d_p, i_p = chamfer.nearest_plain(a, b)
+        for x, y in ((gts, preds), (preds, gts)):
+            got = chamfer_cuda.nearest_pair_cuda(x, y)
+            again = chamfer_cuda.nearest_pair_cuda(x, y)
+            want = chamfer.nearest_pair_plain(x, y)
             torch.cuda.synchronize()
-            shape = (tuple(a.shape), tuple(b.shape))
-            check(torch.equal(d_k, d_p), f"chamfer_nearest minima differ at {shape}: "
-                  f"max |diff| {(d_k - d_p).abs().max().item()}")
-            check(torch.equal(i_k, i_p), f"chamfer_nearest argmins differ at {shape}: "
-                  f"{(i_k != i_p).sum().item()} of {i_k.numel()}")
-            max_err = max(max_err, (d_k - d_p).abs().max().item())
+            shape = (tuple(x.shape), tuple(y.shape))
+            for name, k, p, k2 in zip(names, got, want, again):
+                check(torch.equal(k, p), f"chamfer_nearest {name} differs at {shape}: "
+                      f"{(k != p).sum().item()} of {k.numel()}, max |diff| "
+                      f"{(k.double() - p.double()).abs().max().item()}")
+                check(torch.equal(k, k2), f"chamfer_nearest {name}: two launches differ at {shape}")
+            max_err = max(max_err, *((k - p).abs().max().item()
+                                     for k, p in zip(got[::2], want[::2])))
+            del got, again, want
     check(float(chamfer.chamfer_distance(same, same, "cuda").abs().max()) == 0.0,
           "chamfer of identical clouds is not 0")
 
@@ -154,18 +189,18 @@ def phase_kernels(device, peak_name, peaks):  # the chamfer kernel
         check(torch.allclose(gp, rp, rtol=1e-3, atol=1e-4), "chamfer d/dpreds differs from dense")
         check(torch.allclose(gg, rg, rtol=1e-3, atol=1e-4), "chamfer d/dgts differs from dense")
 
-    # times at the main path's shape: one chamfer call's search, both directions
+    # times at the main path's shape: one chamfer call's search, both
+    # directions; device time, calls queued behind a sleep kernel (the
+    # wrapper's host time is longer than the kernel's)
     preds, gts = pairs[0]
     bsz, n, _ = gts.shape
     m = preds.shape[1]
 
     def kernel():
-        chamfer_cuda.nearest_cuda(gts, preds)
-        chamfer_cuda.nearest_cuda(preds, gts)
+        chamfer_cuda.nearest_pair_cuda(gts, preds)
 
     def plain():
-        chamfer.nearest_plain(gts, preds)
-        chamfer.nearest_plain(preds, gts)
+        chamfer.nearest_pair_plain(gts, preds)
 
     def library():
         d = torch.cdist(gts, preds, compute_mode="donot_use_mm_for_euclid_dist").square()
@@ -173,16 +208,20 @@ def phase_kernels(device, peak_name, peaks):  # the chamfer kernel
         d.min(dim=1)
 
     # turns: plain, kernel, kernel, plain; the mean of each pair
-    t_plain_1 = cuda_ms(plain, iters=5)
-    t_kernel_1 = cuda_ms(kernel)
-    t_kernel_2 = cuda_ms(kernel)
-    t_plain_2 = cuda_ms(plain, iters=5)
-    t_lib = cuda_ms(library, iters=5)
-    t_launch = cuda_ms(lambda: chamfer_cuda.nearest_cuda(gts, preds))
-    flop = 8.0 * bsz * n * m                       # one distance per pair, as the TPU kernel
+    t_plain_1 = device_ms(plain, iters=5)
+    t_kernel_1 = device_ms(kernel)
+    t_kernel_2 = device_ms(kernel)
+    t_plain_2 = device_ms(plain, iters=5)
+    t_lib = device_ms(library, iters=5)
+    t_calls = cuda_ms(kernel)
+    # every distance once, 8 FP32 instructions (no FMA: bit-exact) at the FP32
+    # instruction rate, half the FP32 FLOP rate
+    rate = peaks[0] / 2
+    t_ops = bound_ms(bsz, n, m, rate)
     nbytes = 4 * 3 * bsz * (n + m) + (4 + 8) * bsz * (n + m)  # clouds in, min+argmin out
-    t_ops = flop / peaks[0] * 1e3
     t_bytes = nbytes / peaks[1] * 1e3
+    slots, ops = sass_slots_per_pair(chamfer_cuda.library_path())
+    pl = chamfer_cuda.plan(bsz, n, m)
     record = {
         "name": "chamfer_nearest",
         "route": "cuda",
@@ -195,14 +234,25 @@ def phase_kernels(device, peak_name, peaks):  # the chamfer kernel
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": t_lib,
+        "sass_slots_per_pair": slots,
     }
-    print(f"kernels: chamfer_nearest equal to nearest_plain (minima and argmins, both "
-          f"directions) at {cases} and identical clouds; loss/grads match dense autograd; "
-          f"at (32,2048,2048) one search of both directions: kernel {t_kernel_1:.4f}/"
-          f"{t_kernel_2:.4f} ms, one launch {t_launch:.4f} ms, plain {t_plain_1:.4f}/"
-          f"{t_plain_2:.4f} ms, cdist {t_lib:.4f} ms, bound {record['bound_ms']:.4f} ms "
-          f"({record['bound_by']}; {peak_name} {peaks[0] / 1e12:.0f} TFLOP/s FP32, "
-          f"{peaks[1] / 1e12:.2f} TB/s)", flush=True)
+    slots_text = f"{slots:.2f}" if slots is not None else f"not counted ({ops})"
+    print(f"kernels: chamfer_nearest (one launch, both directions) bit-equal to "
+          f"nearest_pair_plain (minima and argmins, both directions) and launch to launch at "
+          f"{list(CHAMFER_CASES)}, identical clouds and tie-heavy clouds at {list(TIE_CASES)}; "
+          f"loss/grads match dense autograd; plan at {(bsz, n, m)}: {pl}; one chamfer call's "
+          f"search, device time: kernel {t_kernel_1:.4f}/{t_kernel_2:.4f} ms (calls back to "
+          f"back, host time included: {t_calls:.4f} ms), plain {t_plain_1:.4f}/"
+          f"{t_plain_2:.4f} ms, cdist + 2 min {t_lib:.4f} ms, bound {record['bound_ms']:.4f} ms "
+          f"({record['bound_by']}: {PAIR_INSTRUCTIONS} FP32 instructions a pair at "
+          f"{rate / 1e12:.2f}e12/s, half of {peak_name}'s {peaks[0] / 1e12:.0f} TFLOP/s FP32; "
+          f"{bound_ms(bsz, n, m, rate, PAIR_INSTRUCTIONS_FMA):.4f} ms with FMAs, not bit-exact; "
+          f"bytes {t_bytes:.4f} ms at {peaks[1] / 1e12:.2f} TB/s); "
+          f"{record['ms'] * 1e-3 * rate / (bsz * n * m):.2f} issue slots a pair achieved, "
+          f"SASS tile loop {slots_text} slots a pair", flush=True)
+    if slots is not None:
+        print("kernels: chamfer_nearest tile loop opcodes: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])), flush=True)
     return record
 
 
@@ -505,8 +555,8 @@ def phase_train_3d(device, card: str, results_dir: str):
     counts = read_counts()
     launches = counts["chamfer_nearest"]
     last = summary["last_metrics"]
-    check(launches == 12 * steps, f"chamfer_nearest launched {launches} times in {steps} intro "
-          f"steps, expected {12 * steps}")
+    check(launches == 6 * steps, f"chamfer_nearest launched {launches} times in {steps} intro "
+          f"steps, expected {6 * steps} (one a chamfer call)")
     check(counts["bias_act_norm_fwd"] == counts["bias_act_norm_bwd"] == 0,
           f"the 3D path launched a fused-norm kernel: {counts}")
     check(math.isfinite(last["loss_e"]) and math.isfinite(last["loss_d"]),

@@ -5,9 +5,10 @@ clouds preds (B, N, 3) and gts (B, M, 3) the per-sample loss (B,) is
 
     sum_j min_i ||gts_i - preds_j||^2  +  sum_i min_j ||gts_i - preds_j||^2.
 
-The nearest-neighbour search has two implementations with the same bits:
-``nearest_plain`` (PyTorch ops, the CPU path and the oracle) and the CUDA
-kernel in ``ops/chamfer_cuda.py``. Both compute the difference form
+The nearest-neighbour search, both directions from one distance block, has
+two implementations with the same bits: ``nearest_pair_plain`` (PyTorch ops,
+the CPU path and the oracle) and the CUDA kernel in ``ops/chamfer_cuda.py``
+(one launch per chamfer call). Both compute the difference form
 (dx*dx + dy*dy) + dz*dz, not xx + yy - 2xy, and keep the first index on ties.
 ``ChamferDistance`` adds the analytic backward of the JAX package's
 ``_chamfer_bwd`` (chamfer_pallas.py:128-140) from the saved argmins.
@@ -44,6 +45,17 @@ def nearest_plain(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
     return pairwise_sqdist(a, b).min(dim=2)
 
 
+def nearest_pair_plain(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(min_x, amin_x, min_y, amin_y) from one distance block: per point of x
+    over y, (B, N), and per point of y over x, (B, M); int64 argmins, first
+    index on ties. The halves have the bits of ``nearest_plain(x, y)`` and
+    ``nearest_plain(y, x)``: x - y is exactly -(y - x), so the squares agree."""
+    d = pairwise_sqdist(x, y)
+    min_x, amin_x = d.min(dim=2)
+    min_y, amin_y = d.min(dim=1)
+    return min_x, amin_x, min_y, amin_y
+
+
 def _resolve_impl(impl: str, t: Tensor) -> str:
     if impl not in IMPLS:
         raise NotImplementedError(f"unknown chamfer impl: {impl!r}")
@@ -54,11 +66,11 @@ def _resolve_impl(impl: str, t: Tensor) -> str:
     return impl
 
 
-def nearest(a: Tensor, b: Tensor, impl: str = "auto") -> Tuple[Tensor, Tensor]:
-    """Nearest point of b for every point of a, through the kernel on CUDA tensors."""
-    if _resolve_impl(impl, a) == "cuda":
-        return chamfer_cuda.nearest_cuda(a.float().contiguous(), b.float().contiguous())
-    return nearest_plain(a, b)
+def nearest_pair(x: Tensor, y: Tensor, impl: str = "auto") -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Both directions' nearest points, through one kernel launch on CUDA tensors."""
+    if _resolve_impl(impl, x) == "cuda":
+        return chamfer_cuda.nearest_pair_cuda(x.float().contiguous(), y.float().contiguous())
+    return nearest_pair_plain(x, y)
 
 
 class ChamferDistance(torch.autograd.Function):
@@ -66,8 +78,9 @@ class ChamferDistance(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, preds: Tensor, gts: Tensor, impl: str = "auto") -> Tensor:
-        min_g, amin_g = nearest(gts, preds, impl)    # per gt: nearest pred
-        min_p, amin_p = nearest(preds, gts, impl)    # per pred: nearest gt
+        # x = gts, as in the JAX package's _chamfer_fwd_impl: min_g per gt
+        # over preds, min_p per pred over gts
+        min_g, amin_g, min_p, amin_p = nearest_pair(gts, preds, impl)
         ctx.save_for_backward(preds, gts, amin_g, amin_p)
         return min_g.sum(dim=1) + min_p.sum(dim=1)
 

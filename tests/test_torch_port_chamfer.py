@@ -43,6 +43,54 @@ def test_nearest_plain_matches_pallas_interpret(b, n, m, tile):
     assert i_g.dtype == torch.int64  # torch.gather takes it as it is
 
 
+@pytest.mark.parametrize("b,n,m,tile", CASES)
+def test_nearest_pair_plain_matches_pallas_interpret(b, n, m, tile):
+    # x = gts, y = preds, as _chamfer_fwd_impl calls _nearest
+    preds, gts = _clouds(b, n, m, seed=3 * n + m)
+    want = _nearest(jnp.asarray(gts), jnp.asarray(preds), tile, True)
+    got = chamfer.nearest_pair_plain(torch.tensor(gts), torch.tensor(preds))
+    for g, w in zip(got[0::2], want[0::2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
+    for g, w in zip(got[1::2], want[1::2]):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert [tuple(g.shape) for g in got] == [(b, m), (b, m), (b, n), (b, n)]
+
+
+def _tie_clouds(kind, b, n, m, seed):
+    rs = np.random.RandomState(seed)
+    if kind == "random":
+        return _clouds(b, n, m, seed)
+    if kind == "grid":  # coordinates on a coarse grid: many equal distances
+        return (np.round(rs.randn(b, n, 3) * 4) / 8).astype(np.float32), \
+            (np.round(rs.randn(b, m, 3) * 4) / 8).astype(np.float32)
+    # a few distinct points, each repeated at indices far apart (other tiles,
+    # other cluster ranks of the kernel)
+    base = (rs.randn(b, 5, 3) * 0.3).astype(np.float32)
+    return (np.take_along_axis(base, rs.randint(0, 5, (b, n, 1)), axis=1),
+            np.take_along_axis(base, rs.randint(0, 5, (b, m, 1)), axis=1))
+
+
+@pytest.mark.parametrize("kind", ["random", "grid", "repeated"])
+@pytest.mark.parametrize("b,n,m", [(2, 64, 40), (1, 300, 257), (3, 17, 1001)])
+def test_nearest_pair_plain_halves_are_nearest_plain(kind, b, n, m):
+    # the per-y half is bit-identical to nearest_plain(y, x), the per-x half
+    # to nearest_plain(x, y): the kernel is held to both on the card
+    x, y = (torch.tensor(c) for c in _tie_clouds(kind, b, n, m, seed=n * m))
+    min_x, amin_x, min_y, amin_y = chamfer.nearest_pair_plain(x, y)
+    d_y, i_y = chamfer.nearest_plain(y, x)
+    d_x, i_x = chamfer.nearest_plain(x, y)
+    assert torch.equal(min_y.view(torch.int32), d_y.view(torch.int32))
+    assert torch.equal(amin_y, i_y)
+    assert torch.equal(min_x.view(torch.int32), d_x.view(torch.int32))
+    assert torch.equal(amin_x, i_x)
+    if kind != "random":  # ties were there to break, and the first index won
+        d = chamfer.pairwise_sqdist(x, y)
+        assert int((d == min_y[:, None, :]).sum()) > min_y.numel()
+        first = (d == min_y[:, None, :]).int().argmax(dim=1)
+        assert torch.equal(amin_y, first)
+
+
 def test_nearest_plain_first_index_on_ties():
     # b holds the same point twice and a point at the same distance: index 0 wins
     a = torch.tensor([[[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]]])
@@ -107,7 +155,7 @@ def test_dispatch_on_cpu_never_reaches_the_kernel():
 def test_kernel_wrapper_validates_its_inputs():
     x = torch.zeros(1, 4, 3)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        chamfer_cuda.nearest_cuda(x, x)
+        chamfer_cuda.nearest_pair_cuda(x, x)
 
 
 def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's 3D intro step goes on the GPU.
 
-    python3 tools/torch_profile_3d.py [--steps 5]
+    python3 tools/torch_profile_3d.py [--steps 5] [--root DIR] [--out FILE]
 
 Builds the 3D trainer of soft_intro_vae_torch at the full width of
 configs/soft_intro_vae_hp.json (2048 points, batch 32, z 128), warms up, times
@@ -10,7 +10,10 @@ traces as many with torch.profiler. Prints the card's name and power limit,
 ms/step, the device's busy time and its idle share of the traced window and
 of the untraced step, and the device time by kernel family and by kernel,
 then one JSON line. Fails when the
-trace holds no device time. Imports nothing of JAX.
+trace holds no device time. ``--root`` profiles the package of another
+checkout (built into that checkout's ``_build/``), so two versions can be
+compared in one call; ``--out`` writes every kernel's ms/step and launches a
+step to a JSON file. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # kernel name substring -> family, first match wins
 FAMILIES = (
-    ("nearest_kernel", "chamfer kernel (hand-written)"),
+    ("nearest_pair_kernel", "chamfer kernel (hand-written)"),
     ("scatter", "chamfer backward (gather/scatter)"),
     ("gather", "chamfer backward (gather/scatter)"),
     ("batch_norm", "batch norm"),
@@ -61,6 +64,8 @@ def device_us(evt) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--root", default=ROOT, help="checkout whose soft_intro_vae_torch is profiled")
+    ap.add_argument("--out", default="", help="JSON file for the per-kernel table")
     args = ap.parse_args(argv)
 
     import dataclasses
@@ -71,13 +76,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_profile_3d: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import soft_intro_vae_torch
+
+    if os.path.dirname(os.path.dirname(os.path.abspath(soft_intro_vae_torch.__file__))) != root:
+        print(f"torch_profile_3d: soft_intro_vae_torch did not come from {root}", file=sys.stderr)
+        return 1
     from soft_intro_vae_torch.data.shapenet import SyntheticClouds
     from soft_intro_vae_torch.train.threed import ThreeDConfig, build_3d_training
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    cfg = dataclasses.replace(ThreeDConfig.from_json(os.path.join(ROOT, "configs", "soft_intro_vae_hp.json")),
+    cfg = dataclasses.replace(ThreeDConfig.from_json(os.path.join(root, "configs", "soft_intro_vae_hp.json")),
                               seed=0, device="cuda")
     state, _, intro_step = build_3d_training(cfg)
     pts = torch.from_numpy(SyntheticClouds(cfg.batch_size * 4, cfg.n_points, seed=5).points).cuda()
@@ -115,7 +126,7 @@ def main(argv=None) -> int:
     for name, ms in kernels.items():
         fams[family(name)] += ms
     n = args.steps
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; package {root}")
     print(f"intro step at 2048 points, batch 32, z 128: {ms_step:.3f} ms/step untraced, "
           f"{traced_ms / n:.3f} ms/step traced; device busy {busy_ms / n:.3f} ms/step, "
           f"idle share {1 - busy_ms / traced_ms:.3f} of the traced window, "
@@ -130,6 +141,11 @@ def main(argv=None) -> int:
                       "idle_share_untraced": 1 - busy_ms / n / ms_step,
                       "launches_step": sum(launches.values()) / n,
                       "families_ms_step": {k: v / n for k, v in fams.items()}}))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "root": root,
+                       "kernels": {k: {"ms_step": ms / n, "launches_step": launches[k] / n}
+                                   for k, ms in kernels.items()}}, f, indent=1)
     return 0
 
 
