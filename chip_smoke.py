@@ -32,7 +32,20 @@ Phases, each printing one line; any failure exits non-zero:
               per-step bound;
   7. routes style: one f32 intro step through the kernels against one
               through the plain version, from the same weights and draws;
-  8. transition style: LOD 0 -> 1 through a blended epoch.
+  8. transition style: LOD 0 -> 1 through a blended epoch;
+  9. kernels u8norm: the uint8 NHWC -> f32 NCHW normalize bit-equal to its
+              plain version and to numpy for all 256 byte values and at the
+              image recipes' batch shapes and odd ones, launch to launch; its
+              device time against the bound; the naive PyTorch chain's time
+              and how many byte values it gets wrong on the card;
+ 10. train image: ``train_soft_intro_vae`` at the CIFAR-10 recipe's full
+              width (channels 64/128/256, z 128, batch 32, f32) on a uint8
+              dataset, one vanilla and one intro epoch, u8norm launches held
+              to the steps taken; ms per intro step after warm-up;
+ 11. routes image: one intro step through the kernel and through the plain
+              normalize, from the same weights, draws and uint8 batch;
+ 12. bootstrap image: one bootstrap epoch; the target decoder's sync is a
+              copy into tensors of its own.
 The second-to-last lines are the kernels' JSON record and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -259,15 +272,16 @@ def phase_kernels(device, peak_name, peaks):  # the chamfer kernel
 def phase_build() -> str:
     """nvcc builds every kernel library of the checkout, one process per source,
     all started together."""
-    from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, cuda_build
+    from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, cuda_build, u8norm_cuda
 
     t0 = time.perf_counter()
-    paths = cuda_build.build_many([chamfer_cuda.spec(), adain_cuda.spec()])
-    chamfer_cuda.load()
-    adain_cuda.load()
-    parts = [f"{os.path.basename(spec[0])}: {cuda_build.ptxas_summary(path)}"
-             for spec, path in zip((chamfer_cuda.spec(), adain_cuda.spec()), paths)]
-    return (f"build: chamfer_nearest.cu and bias_act_norm.cu in "
+    libs = (chamfer_cuda, adain_cuda, u8norm_cuda)
+    paths = cuda_build.build_many([lib.spec() for lib in libs])
+    for lib in libs:
+        lib.load()
+    parts = [f"{os.path.basename(lib.spec()[0])}: {cuda_build.ptxas_summary(path)}"
+             for lib, path in zip(libs, paths)]
+    return (f"build: chamfer_nearest.cu, bias_act_norm.cu and u8norm.cu in "
             f"{time.perf_counter() - t0:.2f} s (in parallel); " + " || ".join(parts))
 
 
@@ -503,17 +517,17 @@ def norm_line(worst, times, peaks) -> str:
 
 
 def reset_counts() -> None:
-    from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda
+    from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, u8norm_cuda
 
-    chamfer_cuda.launches = 0
+    chamfer_cuda.launches = u8norm_cuda.launches = 0
     adain_cuda.launches_fwd = adain_cuda.launches_bwd = 0
 
 
 def read_counts() -> dict:
-    from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda
+    from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, u8norm_cuda
 
     return {"chamfer_nearest": chamfer_cuda.launches, "bias_act_norm_fwd": adain_cuda.launches_fwd,
-            "bias_act_norm_bwd": adain_cuda.launches_bwd}
+            "bias_act_norm_bwd": adain_cuda.launches_bwd, "u8norm": u8norm_cuda.launches}
 
 
 @contextlib.contextmanager
@@ -557,8 +571,8 @@ def phase_train_3d(device, card: str, results_dir: str):
     last = summary["last_metrics"]
     check(launches == 6 * steps, f"chamfer_nearest launched {launches} times in {steps} intro "
           f"steps, expected {6 * steps} (one a chamfer call)")
-    check(counts["bias_act_norm_fwd"] == counts["bias_act_norm_bwd"] == 0,
-          f"the 3D path launched a fused-norm kernel: {counts}")
+    check(counts["bias_act_norm_fwd"] == counts["bias_act_norm_bwd"] == counts["u8norm"] == 0,
+          f"the 3D path launched a fused-norm or u8norm kernel: {counts}")
     check(math.isfinite(last["loss_e"]) and math.isfinite(last["loss_d"]),
           f"non-finite losses: {last}")
     check(summary["best_jsd"] is not None and math.isfinite(summary["best_jsd"]),
@@ -667,7 +681,8 @@ def phase_style_train(device, card: str, results_dir: str):
     want_fwd, want_bwd = style_step_launches(cfg.layer_count - 1, steps, steps)
     check(counts["bias_act_norm_fwd"] == want_fwd and counts["bias_act_norm_bwd"] == want_bwd,
           f"fused-norm launches {counts}, expected forward {want_fwd}, backward {want_bwd}")
-    check(counts["chamfer_nearest"] == 0, f"the style path launched chamfer: {counts}")
+    check(counts["chamfer_nearest"] == counts["u8norm"] == 0,
+          f"the style path launched chamfer or u8norm: {counts}")
     check(summary["epochs_run"] == 2 and summary["steps"] == 2 * steps and state.step == 2 * steps,
           f"style run: {summary['epochs_run']} epochs, {summary['steps']} steps")
     last = summary["last_metrics"]
@@ -825,6 +840,249 @@ def phase_style_transition(device, results_dir: str):
           f"{time.perf_counter() - t0:.2f} s; loss_e {last['loss_e']:.6g}", flush=True)
 
 
+# the image slice: the CIFAR-10 recipe (bench.py's ImageSpec, z 128, batch 32,
+# beta_rec/beta_kl/beta_neg 1/1/256, f32) on a uint8 dataset made from a seed
+IMAGE_N = 2048         # images: 64 steps of batch 32 an epoch
+# u8norm cases (B, H, W, C): the CIFAR-10 and celeb256 batches, mnist's single
+# channel, odd sizes and a single pixel
+U8_SHAPES = ((32, 32, 32, 3), (32, 256, 256, 3), (5, 28, 28, 1), (3, 7, 5, 1), (1, 1, 1, 1))
+# kernel route against plain route, one f32 intro step, TF32 off and cuDNN
+# deterministic: the normalized batches are bit-equal, so the losses agree
+# to the rounding of the convolutions' sums
+IMAGE_RTOL_LOSS = 1e-5
+
+
+def phase_u8norm(device, peaks):
+    """u8norm bit-equal to its plain version and to numpy for every byte value
+    and at U8_SHAPES, two launches bit-equal; device times against the bound;
+    the naive chain ``x.permute(0, 3, 1, 2).float().div(255)``: its time and
+    the byte values it gets wrong on the card."""
+    import numpy as np
+    import torch
+
+    from soft_intro_vae_torch.ops import u8norm, u8norm_cuda
+    from tools.torch_norm_sites import device_ms
+
+    host = np.arange(256, dtype=np.uint8).astype(np.float32) / np.float32(255)
+    every = torch.arange(256, dtype=torch.uint8, device=device).reshape(1, 16, 16, 1)
+    got = u8norm_cuda.u8_to_unit_nchw_cuda(every)
+    plain = u8norm.u8_to_unit_nchw_plain(every)
+    naive = every.permute(0, 3, 1, 2).float().div(255)
+    torch.cuda.synchronize()
+    bits = got.cpu().numpy().ravel().view(np.uint32)
+    check(np.array_equal(bits, host.view(np.uint32)), "u8norm differs from numpy on the 256 bytes")
+    check(torch.equal(got.view(torch.int32), plain.view(torch.int32)),
+          "u8norm differs from its plain version on the 256 bytes")
+    naive_wrong = int((naive.cpu().numpy().ravel().view(np.uint32) != host.view(np.uint32)).sum())
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    batches = {}
+    for shape in U8_SHAPES:
+        x = torch.randint(0, 256, shape, generator=gen, device=device, dtype=torch.uint8)
+        k1, k2 = u8norm_cuda.u8_to_unit_nchw_cuda(x), u8norm_cuda.u8_to_unit_nchw_cuda(x)
+        p = u8norm.u8_to_unit_nchw_plain(x)
+        torch.cuda.synchronize()
+        check(k1.shape == p.shape, f"u8norm shape {tuple(k1.shape)} at {shape}")
+        check(torch.equal(k1.view(torch.int32), p.view(torch.int32)),
+              f"u8norm differs from its plain version at {shape}: "
+              f"{int((k1 != p).sum())} of {p.numel()}")
+        check(torch.equal(k1.view(torch.int32), k2.view(torch.int32)),
+              f"u8norm: two launches differ at {shape}")
+        batches[shape] = x
+
+    times = {}
+    for shape in U8_SHAPES[:2]:
+        x = batches[shape]
+        t = {"plain": [device_ms(lambda: u8norm.u8_to_unit_nchw_plain(x))]}
+        t["kernel"] = [device_ms(lambda: u8norm_cuda.u8_to_unit_nchw_cuda(x)) for _ in range(2)]
+        t["plain"].append(device_ms(lambda: u8norm.u8_to_unit_nchw_plain(x)))
+        t["naive"] = [device_ms(lambda: x.permute(0, 3, 1, 2).float().div(255))]
+        t["calls"] = [cuda_ms(lambda: u8norm_cuda.u8_to_unit_nchw_cuda(x))]
+        times[shape] = {k: sum(v) / len(v) for k, v in t.items()} | {
+            "runs": t, "bound": 5 * x.numel() / peaks[1] * 1e3}
+    recipe = times[U8_SHAPES[0]]
+    record = {
+        "name": "u8norm",
+        "route": "cuda",
+        "source": "soft_intro_vae_torch/ops/csrc/u8norm.cu",
+        "replaces": "soft_intro_vae_tpu/ops/u8norm.py:47 (not Pallas: XLA elementwise ops)",
+        "launches": None,  # filled from the image train phase
+        "max_abs_err": 0.0,
+        "ms": recipe["kernel"],
+        "plain_ms": recipe["plain"],
+        "bound_ms": recipe["bound"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no one PyTorch call computes the correctly rounded i/255
+        "shape": list(U8_SHAPES[0]),
+        "naive_ms": recipe["naive"],
+        "naive_mismatches_of_256": naive_wrong,
+        "celeb256": {k: v for k, v in times[U8_SHAPES[1]].items() if k != "runs"},
+    }
+    parts = []
+    for shape, t in times.items():
+        r = t["runs"]
+        parts.append(f"{shape}: kernel {r['kernel'][0]:.4f}/{r['kernel'][1]:.4f} ms (calls back "
+                     f"to back, host time included: {t['calls']:.4f} ms), plain "
+                     f"{r['plain'][0]:.4f}/{r['plain'][1]:.4f} ms, naive chain {t['naive']:.4f} "
+                     f"ms, bound {t['bound']:.5f} ms")
+    print(f"kernels: u8norm bit-equal to numpy x.astype(f32)/f32(255) and to its plain version "
+          f"for all 256 byte values, and to the plain version and launch to launch at "
+          f"{list(U8_SHAPES)}; the naive chain x.permute(0,3,1,2).float().div(255) gets "
+          f"{naive_wrong} of 256 byte values wrong on this card; device times (calls queued "
+          f"behind a sleep kernel; bound: 5 bytes an element at {peaks[1] / 1e12:.2f} TB/s): "
+          + "; ".join(parts), flush=True)
+    return record
+
+
+def image_config(device, results_dir: str, **kw):
+    from soft_intro_vae_torch.train.image import ImageConfig
+
+    base = dict(dataset="cifar10", z_dim=128, batch_size=32, beta_rec=1.0, beta_kl=1.0,
+                beta_neg=256.0, gamma_r=1e-8, num_epochs=2, num_vae=1, save_interval=1000,
+                seed=0, device=str(device), verbose=False, result_dir=results_dir)
+    return ImageConfig(**{**base, **kw})
+
+
+def image_dataset(n: int = IMAGE_N, seed: int = 3):
+    import numpy as np
+
+    from soft_intro_vae_torch.data.images import DATASETS, ArrayDataset
+
+    spec = DATASETS["cifar10"]
+    check((spec.image_size, spec.channels, spec.cdim) == (32, (64, 128, 256), 3),
+          f"cifar10 width changed: {spec}")
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (n, spec.image_size, spec.image_size, spec.cdim), dtype=np.uint8)
+    return spec, ArrayDataset(images, seed=seed)
+
+
+def phase_train_image(device, card: str, results_dir: str):
+    """The image trainer's main path at the CIFAR-10 recipe's width: one
+    vanilla and one intro epoch on a uint8 dataset, launches counted."""
+    import torch
+
+    from soft_intro_vae_torch.train.image import build_image_training, train_soft_intro_vae
+
+    cfg = image_config(device, results_dir)
+    spec, ds = image_dataset()
+    steps = 2 * (IMAGE_N // cfg.batch_size)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, summary = train_soft_intro_vae(cfg, ds, spec)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(summary["steps"] == state.step == steps, f"image run took {summary['steps']} steps")
+    check(counts["u8norm"] == steps, f"u8norm launched {counts['u8norm']} times in {steps} steps")
+    check(counts["chamfer_nearest"] == counts["bias_act_norm_fwd"] == counts["bias_act_norm_bwd"]
+          == 0, f"the image path launched another kernel: {counts}")
+    last = summary["last_metrics"]
+    check(all(math.isfinite(v) for v in last.values()), f"non-finite image metrics: {last}")
+    saved = os.path.join(results_dir, "saves", "cifar10_soft_intro_betas_1.0_256.0_1.0_"
+                         f"model_epoch_1_iter_{steps}.ckpt")
+    check(os.path.exists(saved), f"no final checkpoint at {saved}")
+
+    # ms per intro step after warm-up, resident uint8 batches
+    state, _, intro = build_image_training(cfg, spec)
+    batches = [torch.from_numpy(ds.images[i * 32:(i + 1) * 32]).to(device) for i in range(4)]
+    for i in range(3):
+        state, m = intro(state, batches[i % 4])
+    windows = []
+    for _ in range(TIMED_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TIMED_STEPS):
+            state, m = intro(state, batches[i % 4])
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
+    check(all(math.isfinite(float(v)) for v in m.values()), "non-finite loss in the timed steps")
+    ms_step = sorted(windows)[len(windows) // 2]
+    print(f"train image: CIFAR-10 recipe width (channels 64/128/256, z 128, batch 32, f32) on "
+          f"{IMAGE_N} uint8 images: {steps // 2} vanilla + {steps // 2} intro steps in "
+          f"{run_s:.2f} s (first call, warm-up included); loss_e {last['loss_e']:.6g}, loss_d "
+          f"{last['loss_d']:.6g}, rec {last['rec']:.6g}; u8norm launches {counts['u8norm']} "
+          f"(one a step); intro step after warm-up {ms_step:.3f} ms/step (median of "
+          f"{'/'.join(f'{w:.3f}' for w in windows)}), {cfg.batch_size * 1e3 / ms_step:.1f} "
+          f"images/s on {card}", flush=True)
+    del state, intro
+    return cfg, counts
+
+
+def phase_image_routes(device, cfg):
+    """One f32 intro step through the u8norm kernel against one through its
+    plain version: same weights, draws and uint8 batch; TF32 off, cuDNN
+    deterministic."""
+    import torch
+
+    from soft_intro_vae_torch.ops import u8norm
+    from soft_intro_vae_torch.train.image import build_image_training
+    from soft_intro_vae_torch.train.step import INTRO_NOISES
+
+    spec, ds = image_dataset(cfg.batch_size, seed=7)
+    x = torch.from_numpy(ds.images).to(device)
+    check(torch.equal(u8norm.u8_to_unit_nchw(x, "cuda").view(torch.int32),
+                      u8norm.u8_to_unit_nchw(x, "plain").view(torch.int32)),
+          "the kernel and the plain normalize differ on the routes batch")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    noises = {k: torch.randn((cfg.batch_size, cfg.z_dim), generator=gen, device=device)
+              for k in INTRO_NOISES}
+    losses = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with no_tf32():
+            for impl in ("cuda", "plain"):
+                state, _, intro = build_image_training(dataclasses.replace(cfg, u8norm_impl=impl),
+                                                       spec)
+                _, m = intro(state, x, noises)
+                losses[impl] = (float(m["loss_e"]), float(m["loss_d"]))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    for name, k, p in zip(("loss_e", "loss_d"), losses["cuda"], losses["plain"]):
+        check(math.isfinite(k) and abs(k - p) <= IMAGE_RTOL_LOSS * abs(p),
+              f"image {name}: kernel route {k!r} vs plain route {p!r}")
+    print(f"routes image: one f32 intro step, TF32 off, cuDNN deterministic: the normalized "
+          f"batches bit-equal; kernel vs plain loss_e {losses['cuda'][0]!r}/"
+          f"{losses['plain'][0]!r}, loss_d {losses['cuda'][1]!r}/{losses['plain'][1]!r} "
+          f"(rtol {IMAGE_RTOL_LOSS:g})", flush=True)
+
+
+def phase_bootstrap_image(device, results_dir: str):
+    """One bootstrap epoch at the CIFAR-10 recipe's width (gamma_r 1.0, the
+    target synced every epoch): the target's tensors equal the decoder's
+    after the sync and share no storage with them."""
+    import torch
+
+    from soft_intro_vae_torch.train.image import train_soft_intro_vae
+
+    cfg = image_config(device, results_dir, bootstrap=True, gamma_r=1.0, copy_to_target_freq=1,
+                       num_epochs=1, num_vae=0)
+    spec, ds = image_dataset()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, summary = train_soft_intro_vae(cfg, ds, spec)
+    torch.cuda.synchronize()
+    steps = IMAGE_N // cfg.batch_size
+    check(summary["steps"] == steps and read_counts()["u8norm"] == steps,
+          f"bootstrap: {summary['steps']} steps, {read_counts()['u8norm']} u8norm launches")
+    online, target = state.decoder.state_dict(), state.target_decoder.state_dict()
+    check(set(online) == set(target), "target and online decoders differ in names")
+    for k, v in online.items():
+        check(torch.equal(v, target[k]), f"bootstrap sync: target {k} differs from the decoder's")
+        check(v.untyped_storage().data_ptr() != target[k].untyped_storage().data_ptr(),
+              f"bootstrap sync: target {k} shares storage with the decoder's")
+    check(all(not p.requires_grad for p in state.target_decoder.parameters()),
+          "a target decoder parameter takes a gradient")
+    last = summary["last_metrics"]
+    check(all(math.isfinite(v) for v in last.values()), f"non-finite bootstrap metrics: {last}")
+    print(f"bootstrap image: {steps} bootstrap intro steps (gamma_r 1.0) in "
+          f"{time.perf_counter() - t0:.2f} s; loss_e {last['loss_e']:.6g}, loss_d "
+          f"{last['loss_d']:.6g}; after the sync the target's {len(target)} tensors equal the "
+          f"decoder's and share no storage with them", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -858,10 +1116,18 @@ def main() -> int:
     phase_style_routes(device, cfg)
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_style_transition(device, results_dir)
+    u8 = phase_u8norm(device, peaks)
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
+        cfg_image, counts_image = phase_train_image(device, card, results_dir)
+    phase_image_routes(device, cfg_image)
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
+        phase_bootstrap_image(device, results_dir)
     chamfer["launches"] = counts_3d["chamfer_nearest"]
     records = [chamfer] + norm_records(worst, times, peaks, totals)
     for rec in records[1:]:
         rec["launches"] = counts_style[rec["name"]]
+    u8["launches"] = counts_image["u8norm"]
+    records.append(u8)
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

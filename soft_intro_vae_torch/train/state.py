@@ -1,5 +1,6 @@
-"""Train state (port of train/state.py): both subnets, their optimizers, the
-step counter, the per-phase learning rates and the random generator.
+"""Train state (port of train/state.py): both subnets (and the bootstrap
+variant's target decoder), their optimizers, the step counter, the per-phase
+learning rates and the random generator.
 
 PyTorch updates in place, so a step mutates the state it is given; the
 steps still return it, as the JAX steps return the new state.
@@ -8,6 +9,7 @@ steps still return it, as the JAX steps return the new state.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -17,7 +19,9 @@ from soft_intro_vae_torch.train import optim
 
 @dataclasses.dataclass
 class TrainState:
-    model: nn.Module  # holds ``encoder`` and ``decoder`` (reference state_dict names)
+    # holds ``encoder`` and ``decoder`` (reference state_dict names), and
+    # ``target_decoder`` when bootstrapping (in ``state_dict()`` with them)
+    model: nn.Module
     opt_e: torch.optim.Optimizer
     opt_d: torch.optim.Optimizer
     generator: torch.Generator  # on ``device``; all of the steps' random draws
@@ -33,6 +37,12 @@ class TrainState:
     @property
     def decoder(self) -> nn.Module:
         return self.model.decoder
+
+    @property
+    def target_decoder(self) -> Optional[nn.Module]:
+        """The bootstrap variant's frozen decoder (``model.target_decoder``,
+        no gradient, not in either optimizer), or None."""
+        return getattr(self.model, "target_decoder", None)
 
     @classmethod
     def create(cls, model: nn.Module, *, device: torch.device, seed: int, lr_e: float = 2e-4,

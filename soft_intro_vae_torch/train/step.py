@@ -14,17 +14,33 @@ Reference semantics (file:line into taldatech/soft-intro-vae-pytorch):
     z_rec/z_fake and the recon targets detached (:607-613).
   * vanilla warm-up: :512-540 (unscaled ELBO, joint E+D update).
 
-BatchNorm: every encoder forward runs in train mode and updates the running
+Bootstrap (soft_intro_vae_bootstrap/train_soft_intro_vae_bootstrap.py, the
+JAX package's train/step.py:184-194,264-269,321-329): the vanilla
+reconstruction and the E-phase's two extra decodes go through the frozen
+target decoder (``state.target_decoder``); so do the D-phase's extra decodes,
+with z_rec/z_fake and the recon targets NOT detached (:635-636). In the
+bootstrap vanilla step the online decoder takes no gradient; the JAX step
+still feeds its Adam zero gradients (optax's count is global, so the bias
+correction advances and the moments decay), and so does the port: a
+parameter whose ``.grad`` is None would be skipped by ``torch.optim.Adam``.
+
+BatchNorm: every forward runs in train mode and updates the running
 statistics, in reference order: x, rec.detach(), fake.detach() in the E-phase,
-then rec and fake in the D-phase.
+then rec and fake in the D-phase; the target decoder's on each of its decodes.
+
+Image batches come as the JAX step takes them, NHWC (``nhwc=True``): a uint8
+batch is normalized through ``input_lut`` (the canonical unit table selects
+the CUDA kernel of ops/u8norm.py, which also makes it NCHW), a float batch
+is made NCHW.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -36,6 +52,7 @@ from soft_intro_vae_torch.ops.losses import (
     reconstruction_loss,
     reparameterize,
 )
+from soft_intro_vae_torch.ops.u8norm import u8_to_unit_nchw
 from soft_intro_vae_torch.train.state import TrainState
 
 Tensor = torch.Tensor
@@ -43,6 +60,8 @@ Metrics = Dict[str, Tensor]
 StepFn = Callable[..., Tuple[TrainState, Metrics]]
 
 INTRO_NOISES = ("noise", "eps_real", "eps_e_rec", "eps_e_fake", "eps_d_z", "eps_d_rec", "eps_d_fake")
+# the canonical table: every byte's host value, x.astype(float32) / float32(255)
+UNIT_LUT = np.arange(256, dtype=np.uint8).astype(np.float32) / np.float32(255)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +77,9 @@ class StepConfig:
     prior_std: float = 1.0        # std of the z noise fed to the decoder
     fresh_z_in_d: bool = False    # 3D: re-sample z with fresh eps in D-phase
     detach_expelbo_targets: bool = False  # 3D: detach rec/fake expELBO targets
-    bootstrap: bool = False       # frozen target decoder: not in this port yet
+    bootstrap: bool = False       # decodes through state.target_decoder (module doc)
     chamfer_impl: str = "auto"    # auto | plain | cuda (see ops/chamfer.py)
+    u8norm_impl: str = "auto"     # auto | plain | cuda (see ops/u8norm.py)
 
 
 def _make_recon_fns(loss_type: str, chamfer_impl: str = "auto"):
@@ -86,8 +106,38 @@ def _trainable(module: nn.Module, flag: bool) -> None:
         p.requires_grad_(flag)
 
 
-def build_train_steps(*, cfg: StepConfig, decode_target: Optional[nn.Module] = None,
-                      scan_steps: int = 1, input_lut=None) -> Tuple[StepFn, StepFn]:
+def _input_fn(input_lut, nhwc: bool, u8norm_impl: str = "auto") -> Callable[[Tensor], Tensor]:
+    """The step's batch -> the nets' input (the JAX step's ``_norm``, plus the
+    layout change of NHWC images to NCHW)."""
+    lut = canonical = None
+    if input_lut is not None:
+        lut = np.asarray(input_lut, np.float32)
+        if lut.shape != (256,):
+            raise ValueError(f"input_lut must have shape (256,), got {lut.shape}")
+        canonical = np.array_equal(lut, UNIT_LUT)
+    tables: Dict[torch.device, Tensor] = {}
+
+    def prepare(x: Tensor) -> Tensor:
+        if x.dtype == torch.uint8:
+            if lut is None:
+                raise ValueError("a uint8 batch needs input_lut (e.g. arange(256)/255); without "
+                                 "it the step would train on 0..255 pixels")
+            if not nhwc:
+                raise ValueError("uint8 batches are NHWC images: build the step with nhwc=True")
+            if canonical:
+                return u8_to_unit_nchw(x, u8norm_impl)  # the kernel on the card, one launch
+            if x.device not in tables:
+                tables[x.device] = torch.from_numpy(lut).to(x.device)
+            return tables[x.device][x.long()].permute(0, 3, 1, 2).contiguous()
+        if nhwc:
+            return x.float().permute(0, 3, 1, 2).contiguous()
+        return x
+
+    return prepare
+
+
+def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
+                      nhwc: bool = False) -> Tuple[StepFn, StepFn]:
     """Returns ``(vanilla_step, intro_step)``:
     ``step(state, x, noises=None) -> (state, metrics)``, with ``state``
     updated in place and ``metrics`` a dict of 0-dim tensors left on the device.
@@ -95,17 +145,25 @@ def build_train_steps(*, cfg: StepConfig, decode_target: Optional[nn.Module] = N
     ``noises`` overrides the step's random draws by name: ``eps`` for the
     vanilla step, ``INTRO_NOISES`` for the intro step (the JAX package's
     golden-value hook). Missing draws come from ``state.generator``.
+
+    ``nhwc=True``: ``x`` is a (B, H, W, C) image batch, uint8 or float. A
+    uint8 batch needs ``input_lut``, a 256-entry table: the canonical
+    ``UNIT_LUT`` runs ops/u8norm.py (the CUDA kernel on the card), any other
+    table is looked up; without a table a uint8 batch raises.
+    ``cfg.bootstrap`` needs a state with a ``target_decoder``.
     """
-    if cfg.bootstrap or decode_target is not None:
-        raise NotImplementedError("the bootstrap variant is not ported yet (ROADMAP.md Queue 1, item 7)")
-    if input_lut is not None:
-        raise NotImplementedError("uint8 input (input_lut) is not ported yet (ROADMAP.md Queue 1, item 5)")
     if scan_steps != 1:
         raise NotImplementedError("scan_steps > 1 (a K-step CUDA graph) is not ported yet "
                                   "(ROADMAP.md Queue 1, item 4)")
     recon_mean, recon_per_sample = _make_recon_fns(cfg.loss_type, cfg.chamfer_impl)
     kl_mean = partial(kl_divergence, logvar_o=cfg.prior_logvar, reduce="mean")
     kl_none = partial(kl_divergence, logvar_o=cfg.prior_logvar, reduce="none")
+    prepare = _input_fn(input_lut, nhwc, cfg.u8norm_impl)
+
+    def target_of(state: TrainState) -> nn.Module:
+        if state.target_decoder is None:
+            raise ValueError("bootstrap=True needs a model with a target_decoder")
+        return state.target_decoder
 
     def draw(state: TrainState, nv, name: str, b: int, scale: float = 1.0) -> Tensor:
         if name in nv:
@@ -116,18 +174,24 @@ def build_train_steps(*, cfg: StepConfig, decode_target: Optional[nn.Module] = N
     # ---------------- vanilla VAE warm-up step ----------------
     def vanilla_step(state: TrainState, x: Tensor, noises=None):
         enc, dec = state.encoder, state.decoder
+        x = prepare(x)
         state.model.train()
         _trainable(enc, True)
         _trainable(dec, True)
         eps = draw(state, noises or {}, "eps", x.shape[0])
         mu, logvar = enc(x)
-        rec = dec(reparameterize(mu, logvar, eps))
+        # bootstrap: the target decoder reconstructs (the reference model's
+        # forward with target=True)
+        rec = (target_of(state) if cfg.bootstrap else dec)(reparameterize(mu, logvar, eps))
         loss_rec = recon_mean(x, rec)
         loss_kl = kl_mean(mu, logvar)
         loss = cfg.beta_rec * loss_rec + cfg.beta_kl * loss_kl  # unscaled (:527)
         state.opt_e.zero_grad(set_to_none=True)
         state.opt_d.zero_grad(set_to_none=True)
         loss.backward()
+        if cfg.bootstrap:
+            for p in dec.parameters():  # zero gradients, as the JAX step feeds optax
+                p.grad = torch.zeros_like(p)
         state.opt_e.step()
         state.opt_d.step()
         state.step += 1
@@ -136,6 +200,8 @@ def build_train_steps(*, cfg: StepConfig, decode_target: Optional[nn.Module] = N
     # ---------------- introspective two-phase step ----------------
     def intro_step(state: TrainState, x: Tensor, noises=None):
         enc, dec = state.encoder, state.decoder
+        dec_x = target_of(state) if cfg.bootstrap else dec  # the extra decodes' decoder
+        x = prepare(x)
         state.model.train()
         nv = noises or {}
         b = x.shape[0]
@@ -158,8 +224,8 @@ def build_train_steps(*, cfg: StepConfig, decode_target: Optional[nn.Module] = N
         z_r = reparameterize(rmu, rlv, eps_e_rec)
         fmu, flv = enc(fake.detach())
         z_f = reparameterize(fmu, flv, eps_e_fake)
-        rec_rec = dec(z_r)
-        rec_fake = dec(z_f)
+        rec_rec = dec_x(z_r)
+        rec_fake = dec_x(z_f)
 
         tgt_rec = rec.detach() if cfg.detach_expelbo_targets else rec
         rr = recon_per_sample(tgt_rec, rec_rec)
@@ -190,11 +256,16 @@ def build_train_steps(*, cfg: StepConfig, decode_target: Optional[nn.Module] = N
         z_rec = reparameterize(rmu, rlv, eps_d_rec)
         fmu, flv = enc(fake)   # fake NOT detached
         z_fake = reparameterize(fmu, flv, eps_d_fake)
-        rec_rec = dec(z_rec.detach())   # :607-608
-        rec_fake = dec(z_fake.detach())
-
-        loss_rec_rec = recon_mean(rec.detach(), rec_rec)  # :610-613
-        loss_fake_rec = recon_mean(fake.detach(), rec_fake)
+        if cfg.bootstrap:
+            # the target decoder, z and the targets NOT detached (bootstrap:635-636)
+            rec_rec, rec_fake = dec_x(z_rec), dec_x(z_fake)
+            tgt_r, tgt_f = rec, fake
+        else:
+            rec_rec = dec(z_rec.detach())   # :607-608
+            rec_fake = dec(z_fake.detach())
+            tgt_r, tgt_f = rec.detach(), fake.detach()  # :610-613
+        loss_rec_rec = recon_mean(tgt_r, rec_rec)
+        loss_fake_rec = recon_mean(tgt_f, rec_fake)
         kl_rec = kl_mean(rmu, rlv)
         kl_fake = kl_mean(fmu, flv)
         loss_d = cfg.scale * (

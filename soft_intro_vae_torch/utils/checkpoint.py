@@ -6,10 +6,13 @@ pointer beside them and the reference's find-latest-epoch fallback
 (train_soft_intro_vae_3d.py:444-449). The payload is the train state's
 ``state_dict()`` plus ``epoch`` and ``iteration``:
 
-  * 3D (``train.state.TrainState``): {"model": state_dict in reference
-    names, "opt_e", "opt_d", "step", "lr_e", "lr_d", "rng"}, so the
-    ``model`` entry loads into the reference's nets, and into the JAX package
-    through its ``load_reference_3d_checkpoint``;
+  * 3D, image and bootstrap (``train.state.TrainState``): {"model":
+    state_dict in reference names, "opt_e", "opt_d", "step", "lr_e", "lr_d",
+    "rng"}, so the ``model`` entry loads into the reference's nets, and into
+    the JAX package through its ``load_reference_3d_checkpoint`` /
+    ``load_reference_image_checkpoint`` (a bootstrap model's
+    ``target_decoder.`` entries included); the image trainer names its files
+    ``{dataset}_soft_intro_betas_{beta_kl}_{beta_neg}_{beta_rec}_model_...``;
   * style (``train.style_step.StyleTrainState``): {"nets", "ema", "opt_e",
     "opt_d", "step", "lr", "ema_beta", "rng"}.
 
@@ -92,3 +95,19 @@ class Checkpointer:
             return None
         with open(path + ".aux.json") as f:
             return json.load(f)
+
+
+def load_pretrained(path: str, state: Any) -> int:
+    """Restore ``path`` into ``state`` in place; returns its epoch.
+
+    ``path`` is either a port checkpoint (the train state's payload, written
+    by ``Checkpointer.save``) or a reference ``.pth`` ({"epoch", "model"},
+    train_soft_intro_vae.py:321-329), whose ``model`` state_dict in the
+    reference's names loads strictly into ``state.model``.
+    """
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if "opt_e" in payload:
+        state.load_state_dict(payload)
+    else:
+        state.model.load_state_dict(payload.get("model", payload), strict=True)
+    return int(payload.get("epoch", 0))

@@ -67,6 +67,74 @@ def _conv_oihw(kernel) -> torch.Tensor:
     return _t(np.asarray(kernel).transpose(3, 2, 0, 1))  # HWIO -> (out, in, kh, kw)
 
 
+def _bn(sd: Dict[str, torch.Tensor], name: str, params: Mapping, stats: Mapping) -> None:
+    sd[name + ".weight"] = _t(params["scale"])
+    sd[name + ".bias"] = _t(params["bias"])
+    sd[name + ".running_mean"] = _t(stats["mean"])
+    sd[name + ".running_var"] = _t(stats["var"])
+    sd[name + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _resblock(sd: Dict[str, torch.Tensor], name: str, params: Mapping, stats: Mapping) -> None:
+    for conv in ("conv1", "conv2", "conv_expand"):
+        if conv in params:
+            sd[f"{name}.{conv}.weight"] = _conv_oihw(params[conv]["kernel"])
+    for bn in ("bn1", "bn2"):
+        _bn(sd, f"{name}.{bn}", params[bn], stats[bn])
+
+
+def _hwc_to_chw(c: int, s: int) -> np.ndarray:
+    """For each CHW-flat position, the HWC-flat index holding it: PyTorch
+    flattens a (C, s, s) map channel-major, the JAX nets an (s, s, C) one."""
+    return np.arange(c * s * s).reshape(s, s, c).transpose(2, 0, 1).ravel()
+
+
+def image_state_dict_from_jax(params_e: Mapping, stats_e: Mapping, params_d: Mapping,
+                              stats_d: Mapping, channels, image_size: int,
+                              params_t: Mapping = None,
+                              stats_t: Mapping = None) -> Dict[str, torch.Tensor]:
+    """JAX ConvEncoder/ConvDecoder trees (params and batch_stats) -> the port's
+    ``SoftIntroVAE`` state_dict, in the reference's names; the inverse of
+    ``convert_image_encoder``/``convert_image_decoder``
+    (soft_intro_vae_tpu/utils/torch_compat.py:61-114).
+
+    HWIO -> OIHW; Dense (in, out) -> Linear (out, in); BN scale/bias/mean/var
+    -> weight/bias/running_mean/running_var. The encoder's fc rows and the
+    decoder's fc columns and bias cross the flatten: they go from HWC-flat
+    back to CHW-flat order (a conditional encoder's extra rows stay after the
+    map's). ``params_t``/``stats_t``, when given, become ``target_decoder.``.
+    """
+    sd: Dict[str, torch.Tensor] = {}
+    cc, sz = channels[0], image_size // 2
+    sd["encoder.main.0.weight"] = _conv_oihw(params_e["stem_conv"]["kernel"])
+    _bn(sd, "encoder.main.1", params_e["stem_bn"], stats_e["stem_bn"])
+    for i, ch in enumerate(channels[1:]):
+        _resblock(sd, f"encoder.main.res_in_{sz}", params_e[f"res_{i}"], stats_e[f"res_{i}"])
+        cc, sz = ch, sz // 2
+    _resblock(sd, f"encoder.main.res_in_{sz}", params_e["res_final"], stats_e["res_final"])
+    kernel = np.asarray(params_e["fc"]["kernel"])
+    n_map = cc * sz * sz
+    rows = np.concatenate([_hwc_to_chw(cc, sz), np.arange(n_map, kernel.shape[0])])
+    _linear(sd, "encoder.fc", {"kernel": kernel[rows], "bias": params_e["fc"]["bias"]})
+
+    def decoder(prefix: str, params: Mapping, stats: Mapping) -> None:
+        cc, sz = channels[-1], image_size // 2 ** len(channels)
+        cols = _hwc_to_chw(cc, sz)
+        _linear(sd, prefix + "fc.0", {"kernel": np.asarray(params["fc"]["kernel"])[:, cols],
+                                      "bias": np.asarray(params["fc"]["bias"])[cols]})
+        for i, ch in enumerate(reversed(channels)):
+            _resblock(sd, f"{prefix}main.res_in_{sz}", params[f"res_{i}"], stats[f"res_{i}"])
+            cc, sz = ch, sz * 2
+        _resblock(sd, f"{prefix}main.res_in_{sz}", params["res_final"], stats["res_final"])
+        sd[prefix + "main.predict.weight"] = _conv_oihw(params["predict"]["kernel"])
+        sd[prefix + "main.predict.bias"] = _t(params["predict"]["bias"])
+
+    decoder("decoder.", params_d, stats_d)
+    if params_t is not None:
+        decoder("target_decoder.", params_t, stats_t)
+    return sd
+
+
 def _conv_t_iohw(kernel) -> torch.Tensor:
     return _t(np.asarray(kernel).transpose(2, 3, 0, 1))  # HWIO -> (in, out, kh, kw)
 

@@ -3,8 +3,8 @@
 Capability parity with the style variant's LossTracker
 (reference style_soft_intro_vae/tracker.py:63-147): named running-mean
 accumulators, ``register_means(epoch)`` appends a row and rewrites log.csv.
-The JAX package's matplotlib ``plot()`` is left out: the port runs without
-matplotlib. Call ``update`` with already-fetched (host) metrics to avoid
+``plot()`` is a no-op returning None without matplotlib (the card's machine
+has none). Call ``update`` with already-fetched (host) metrics to avoid
 per-iteration device syncs.
 """
 
@@ -71,6 +71,25 @@ class LossTracker:
 
     def mean(self, key: str) -> float:
         return self.means[key].mean() if key in self.means else float("nan")
+
+    def plot(self, filename: str = "plot.png"):
+        """The loss curves as one figure; the path, or None without matplotlib."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except Exception:  # matplotlib is optional
+            return None
+        fig, ax = plt.subplots(figsize=(10, 6))
+        for k, series in self.history.items():
+            ax.plot(self.epochs, series, label=k)
+        ax.legend()
+        ax.set_xlabel("epoch")
+        path = os.path.join(self.output_dir, filename)
+        fig.savefig(path)
+        plt.close(fig)
+        return path
 
     def save_pickle(self, filename: str = "train_graphs_data.pickle") -> str:
         """End-of-run loss-curve pickle (reference train_soft_intro_vae.py:695-697)."""

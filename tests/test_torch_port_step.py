@@ -189,8 +189,6 @@ def test_draws_come_from_the_state_generator():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(cfg=StepConfig(z_dim=Z, bootstrap=True)), "item 7"),
-    (dict(cfg=StepConfig(z_dim=Z), input_lut=np.arange(256) / 255.0), "item 5"),
     (dict(cfg=StepConfig(z_dim=Z), scan_steps=4), "item 4"),
 ])
 def test_options_of_later_slices_raise(kwargs, item):
