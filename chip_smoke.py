@@ -21,6 +21,10 @@ Phases, each printing one line; any failure exits non-zero:
               synthetic clouds for one intro epoch plus the valid JSD, every
               kernel's launch count read around it; the step time after
               warm-up; one step through the kernel against the plain route;
+  4b. graph 3d: the generic step's K-step form (``scan_steps`` 4, a CUDA
+              graph of one step with the chamfer kernel captured) at that
+              width, two calls against 8 eager steps from the same seed: every
+              metric, parameter, BN buffer, Adam moment and count bit-equal;
   5. train style: ``train_style_soft_intro_vae`` at the full width of
               configs/ffhq256.yaml (7 blocks, 64->512 channels, latent 512,
               bf16) at LOD 6 (256x256, batch 4) on synthetic images, one
@@ -39,13 +43,22 @@ Phases, each printing one line; any failure exits non-zero:
               device time against the bound; the naive PyTorch chain's time
               and how many byte values it gets wrong on the card;
  10. train image: ``train_soft_intro_vae`` at the CIFAR-10 recipe's full
-              width (channels 64/128/256, z 128, batch 32, f32) on a uint8
-              dataset, one vanilla and one intro epoch, u8norm launches held
-              to the steps taken; ms per intro step after warm-up;
+              width (channels 64/128/256, z 128, batch 32, f32) and bench.py's
+              ``scan_steps`` 8 on a uint8 dataset, one vanilla and one intro
+              epoch of 8 graph calls of 8 steps and a trailing call of one,
+              u8norm launches (eager warm-up steps plus graph replays) held to
+              the steps taken; ms per intro step after warm-up at scan_steps
+              8 and 1;
  11. routes image: one intro step through the kernel and through the plain
               normalize, from the same weights, draws and uint8 batch;
- 12. bootstrap image: one bootstrap epoch; the target decoder's sync is a
-              copy into tensors of its own.
+ 11b. graph image: 16 intro steps as two graph calls of 8 against 16 eager
+              steps from the same seed on the same uint8 batches, bit-equal
+              as in 4b;
+ 12. bootstrap image: one bootstrap epoch at scan_steps 8; the target
+              decoder's sync is a copy into tensors of its own.
+Launch counts are launches on the device: a wrapper's calls, less those
+recorded into a CUDA graph's capture, plus those its replays made
+(train/graph.py).
 The second-to-last lines are the kernels' JSON record and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -518,16 +531,29 @@ def norm_line(worst, times, peaks) -> str:
 
 def reset_counts() -> None:
     from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, u8norm_cuda
+    from soft_intro_vae_torch.train import graph
 
     chamfer_cuda.launches = u8norm_cuda.launches = 0
     adain_cuda.launches_fwd = adain_cuda.launches_bwd = 0
+    graph.captured.clear()
+    graph.replayed.clear()
 
 
 def read_counts() -> dict:
-    from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, u8norm_cuda
+    """Launches on the device since reset_counts, by kernel: each wrapper's
+    count (every call, eager or recorded into a CUDA graph's capture) less
+    the launches recorded into captures, plus those the replays made
+    (train/graph.py); with no graph, the wrappers' counts."""
+    from soft_intro_vae_torch.train import graph
 
-    return {"chamfer_nearest": chamfer_cuda.launches, "bias_act_norm_fwd": adain_cuda.launches_fwd,
-            "bias_act_norm_bwd": adain_cuda.launches_bwd, "u8norm": u8norm_cuda.launches}
+    return {k: v - graph.captured[k] + graph.replayed[k] for k, v in graph.wrapper_counts().items()}
+
+
+def captured_counts() -> dict:
+    """Kernel launches recorded into CUDA graph captures since reset_counts."""
+    from soft_intro_vae_torch.train import graph
+
+    return dict(graph.captured)
 
 
 @contextlib.contextmanager
@@ -621,6 +647,146 @@ def phase_train_3d(device, card: str, results_dir: str):
           f"{losses['cuda'][1]!r}/{losses['plain'][1]!r}", flush=True)
     return {"chamfer_nearest": launches}
 
+
+def compare_runs(a, b):
+    """Two (state, metrics) runs of the generic step: every metric, model
+    tensor (parameters and BN buffers), Adam moment and count, and the
+    generator's state. Returns (names of the tensors that differ, the
+    largest |difference| among them, how many were compared)."""
+    import torch
+
+    (sa, ma), (sb, mb) = a, b
+    pairs = [(f"metric {k}", ma[k], mb[k]) for k in ma]
+    sd_b = sb.model.state_dict()
+    pairs += [(k, v, sd_b[k]) for k, v in sa.model.state_dict().items()]
+    for name in ("opt_e", "opt_d"):
+        states = zip(getattr(sa, name).state.values(), getattr(sb, name).state.values())
+        for i, (p, q) in enumerate(states):
+            pairs += [(f"{name}[{i}].{k}", p[k], q[k]) for k in ("exp_avg", "exp_avg_sq", "step")]
+    pairs.append(("generator", sa.generator.get_state(), sb.generator.get_state()))
+    differ, worst = [], 0.0
+    for name, x, y in pairs:
+        if x.shape != y.shape or not torch.equal(x, y):
+            differ.append(name)
+            if x.shape == y.shape:
+                worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return differ, worst, len(pairs)
+
+
+@contextlib.contextmanager
+def exact_routes(deterministic_algorithms: bool = False):
+    """TF32 off and cuDNN deterministic, for comparing two routes bit for bit;
+    with ``deterministic_algorithms`` also PyTorch's deterministic kernels
+    where it has them (the chamfer backward's ``scatter_add_`` sums with
+    atomics otherwise, in no fixed order, so two eager 3D steps differ in the
+    last bits), warning only for cuBLAS, which is deterministic on one stream
+    and one workspace size."""
+    import warnings
+
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    if deterministic_algorithms:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with no_tf32(), warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*CuBLAS.*")
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+def graph_against_eager(build, xs, scan: int):
+    """The same seed's state built twice: ``xs`` (S, B, ...) through K-step
+    calls of ``scan`` (a CUDA graph) on one, S eager steps on the other.
+    Returns (graph run, eager run, device launches and captures of the graph
+    run)."""
+    import torch
+
+    sg, graphed = build(scan)
+    se, eager = build(1)
+    reset_counts()
+    mg = [graphed(sg, xs[i:i + scan])[1] for i in range(0, xs.shape[0], scan)]
+    torch.cuda.synchronize()
+    counts, captured = read_counts(), captured_counts()
+    me = [eager(se, x)[1] for x in xs]
+    torch.cuda.synchronize()
+    return ((sg, {k: torch.cat([m[k] for m in mg]) for k in mg[0]}),
+            (se, {k: torch.stack([m[k] for m in me]) for k in me[0]}), counts, captured)
+
+
+def phase_graph_3d(device):
+    """The generic step's K-step form with the 3D StepConfig at full width
+    (2048 points, batch 32, z 128): two calls of K = 4 (a CUDA graph, the
+    chamfer kernel captured) against 8 eager steps from the same seed."""
+    import torch
+
+    from soft_intro_vae_torch.data.shapenet import SyntheticClouds
+    from soft_intro_vae_torch.train.threed import ThreeDConfig, build_3d_training
+
+    base = ThreeDConfig.from_json(os.path.join(ROOT, "configs", "soft_intro_vae_hp.json"))
+    cfg = dataclasses.replace(base, seed=0, device=str(device), verbose=False)
+    n, b = 8, cfg.batch_size
+    pts = torch.from_numpy(SyntheticClouds(n * b, cfg.n_points, seed=6).points).to(device)
+    xs = pts.view(n, b, cfg.n_points, 3)
+
+    def build(scan):
+        state, _, intro = build_3d_training(cfg, scan_steps=scan)
+        return state, intro
+
+    t0 = time.perf_counter()
+    with exact_routes(deterministic_algorithms=True):
+        graph_run, eager_run, counts, captured = graph_against_eager(build, xs, 4)
+    differ, worst, compared = compare_runs(graph_run, eager_run)
+    check(counts["chamfer_nearest"] == 6 * n and captured == {"chamfer_nearest": 6},
+          f"3D K-step run: device launches {counts}, captured {captured}; expected "
+          f"{6 * n} chamfer launches, 6 recorded in one capture")
+    check(not differ, f"3D K-step graph against eager steps: {len(differ)} of {compared} tensors "
+          f"differ (first {differ[:6]}), max |diff| {worst!r}")
+    print(f"graph 3d: the generic step's K-step form at 2048 points, batch 32, z 128, two calls "
+          f"of K = 4 (3 eager warm-up steps, a capture, 5 replays) against 8 eager steps, TF32 "
+          f"off, cuDNN deterministic, PyTorch's deterministic scatter_add_: all {compared} "
+          f"tensors bit-equal (metrics (8,), "
+          f"parameters and BN buffers, Adam moments and counts, generator); chamfer_nearest "
+          f"launches {counts['chamfer_nearest']} on the device, {captured['chamfer_nearest']} "
+          f"recorded in the capture (a cooperative launch captured); "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def phase_graph_image(device):
+    """16 intro steps at the CIFAR-10 recipe's width as two K-step calls of 8
+    (a CUDA graph, the u8norm kernel captured) against 16 eager steps from the
+    same seed on the same uint8 batches."""
+    import torch
+
+    from soft_intro_vae_torch.train.image import build_image_training
+
+    n = 16
+    spec, ds = image_dataset(n * 32, seed=9)
+    xs = torch.from_numpy(ds.images).to(device).view(n, 32, *ds.images.shape[1:])
+    cfg = image_config(device, "")
+
+    def build(scan):
+        state, _, intro = build_image_training(dataclasses.replace(cfg, scan_steps=scan), spec)
+        return state, intro
+
+    t0 = time.perf_counter()
+    with exact_routes():
+        graph_run, eager_run, counts, captured = graph_against_eager(build, xs, IMAGE_SCAN)
+    differ, worst, compared = compare_runs(graph_run, eager_run)
+    check(counts["u8norm"] == n and captured == {"u8norm": 1},
+          f"image K-step run: device launches {counts}, captured {captured}")
+    check(not differ, f"image K-step graph against eager steps: {len(differ)} of {compared} "
+          f"tensors differ (first {differ[:6]}), max |diff| {worst!r}")
+    print(f"graph image: CIFAR-10 recipe width, two calls of K = {IMAGE_SCAN} (3 eager warm-up "
+          f"steps, a capture, 13 replays) against {n} eager intro steps, TF32 off, cuDNN "
+          f"deterministic: all {compared} tensors bit-equal (metrics ({n},), parameters and BN "
+          f"buffers, Adam moments and counts, generator); u8norm launches {counts['u8norm']} on "
+          f"the device, {captured['u8norm']} recorded in the capture; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 # the style slice: configs/ffhq256.yaml at full width, LOD 6 (256x256)
@@ -842,7 +1008,8 @@ def phase_style_transition(device, results_dir: str):
 
 # the image slice: the CIFAR-10 recipe (bench.py's ImageSpec, z 128, batch 32,
 # beta_rec/beta_kl/beta_neg 1/1/256, f32) on a uint8 dataset made from a seed
-IMAGE_N = 2048         # images: 64 steps of batch 32 an epoch
+IMAGE_N = 2080         # images: 65 steps of batch 32 an epoch, 8 chunks of 8 and one of 1
+IMAGE_SCAN = 8         # bench.py's scan_steps: steps a K-step call (a CUDA graph)
 # u8norm cases (B, H, W, C): the CIFAR-10 and celeb256 batches, mnist's single
 # channel, odd sizes and a single pixel
 U8_SHAPES = ((32, 32, 32, 3), (32, 256, 256, 3), (5, 28, 28, 1), (3, 7, 5, 1), (1, 1, 1, 1))
@@ -957,14 +1124,49 @@ def image_dataset(n: int = IMAGE_N, seed: int = 3):
     return spec, ArrayDataset(images, seed=seed)
 
 
-def phase_train_image(device, card: str, results_dir: str):
-    """The image trainer's main path at the CIFAR-10 recipe's width: one
-    vanilla and one intro epoch on a uint8 dataset, launches counted."""
+def image_ms_step(cfg, spec, ds, device, scan: int):
+    """ms per intro step after warm-up at ``scan_steps`` = ``scan``, resident
+    uint8 batches (a chunk of ``scan`` at scan > 1): (median, windows), each
+    window 16 steps."""
     import torch
 
-    from soft_intro_vae_torch.train.image import build_image_training, train_soft_intro_vae
+    from soft_intro_vae_torch.train.image import build_image_training
 
-    cfg = image_config(device, results_dir)
+    state, _, intro = build_image_training(dataclasses.replace(cfg, scan_steps=scan), spec)
+    b = cfg.batch_size
+    inputs = [torch.from_numpy(ds.images[i * b * scan:(i + 1) * b * scan]).to(device)
+              for i in range(2)]
+    if scan > 1:
+        inputs = [x.view(scan, b, *x.shape[1:]) for x in inputs]
+    calls = 16 // scan
+    for i in range(max(2, 3 // scan)):  # the first K-step call warms up and captures
+        state, m = intro(state, inputs[i % 2])
+    windows = []
+    for _ in range(TIMED_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            state, m = intro(state, inputs[i % 2])
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) * 1e3 / (calls * scan))
+    check(all(bool(torch.isfinite(v).all()) for v in m.values()),
+          f"non-finite loss in the timed steps at scan_steps {scan}")
+    del state, intro
+    torch.cuda.empty_cache()
+    return sorted(windows)[len(windows) // 2], windows
+
+
+def phase_train_image(device, card: str, results_dir: str):
+    """The image trainer's main path at the CIFAR-10 recipe's width and
+    bench.py's scan_steps 8: one vanilla and one intro epoch on a uint8
+    dataset, each 8 graph calls of 8 steps and a trailing call of one,
+    launches counted per capture plus per replay; ms per step at scan_steps
+    8 and 1."""
+    import torch
+
+    from soft_intro_vae_torch.train.image import train_soft_intro_vae
+
+    cfg = image_config(device, results_dir, scan_steps=IMAGE_SCAN)
     spec, ds = image_dataset()
     steps = 2 * (IMAGE_N // cfg.batch_size)
     reset_counts()
@@ -972,9 +1174,12 @@ def phase_train_image(device, card: str, results_dir: str):
     state, summary = train_soft_intro_vae(cfg, ds, spec)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts = read_counts()
+    counts, captured = read_counts(), captured_counts()
     check(summary["steps"] == state.step == steps, f"image run took {summary['steps']} steps")
-    check(counts["u8norm"] == steps, f"u8norm launched {counts['u8norm']} times in {steps} steps")
+    check(counts["u8norm"] == steps, f"u8norm launched {counts['u8norm']} times in {steps} steps "
+          f"(eager warm-up steps plus graph replays)")
+    check(captured == {"u8norm": 2}, f"the vanilla and intro graphs recorded {captured}, "
+          f"expected one u8norm launch each")
     check(counts["chamfer_nearest"] == counts["bias_act_norm_fwd"] == counts["bias_act_norm_bwd"]
           == 0, f"the image path launched another kernel: {counts}")
     last = summary["last_metrics"]
@@ -982,31 +1187,20 @@ def phase_train_image(device, card: str, results_dir: str):
     saved = os.path.join(results_dir, "saves", "cifar10_soft_intro_betas_1.0_256.0_1.0_"
                          f"model_epoch_1_iter_{steps}.ckpt")
     check(os.path.exists(saved), f"no final checkpoint at {saved}")
+    del state
 
-    # ms per intro step after warm-up, resident uint8 batches
-    state, _, intro = build_image_training(cfg, spec)
-    batches = [torch.from_numpy(ds.images[i * 32:(i + 1) * 32]).to(device) for i in range(4)]
-    for i in range(3):
-        state, m = intro(state, batches[i % 4])
-    windows = []
-    for _ in range(TIMED_WINDOWS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(TIMED_STEPS):
-            state, m = intro(state, batches[i % 4])
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
-    check(all(math.isfinite(float(v)) for v in m.values()), "non-finite loss in the timed steps")
-    ms_step = sorted(windows)[len(windows) // 2]
-    print(f"train image: CIFAR-10 recipe width (channels 64/128/256, z 128, batch 32, f32) on "
-          f"{IMAGE_N} uint8 images: {steps // 2} vanilla + {steps // 2} intro steps in "
-          f"{run_s:.2f} s (first call, warm-up included); loss_e {last['loss_e']:.6g}, loss_d "
-          f"{last['loss_d']:.6g}, rec {last['rec']:.6g}; u8norm launches {counts['u8norm']} "
-          f"(one a step); intro step after warm-up {ms_step:.3f} ms/step (median of "
-          f"{'/'.join(f'{w:.3f}' for w in windows)}), {cfg.batch_size * 1e3 / ms_step:.1f} "
-          f"images/s on {card}", flush=True)
-    del state, intro
-    return cfg, counts
+    ms = {scan: image_ms_step(cfg, spec, ds, device, scan) for scan in (IMAGE_SCAN, 1)}
+    timing = "; ".join(
+        f"scan_steps {scan}: {m:.3f} ms/step (median of {'/'.join(f'{w:.3f}' for w in ws)}), "
+        f"{cfg.batch_size * 1e3 / m:.1f} images/s" for scan, (m, ws) in ms.items())
+    print(f"train image: CIFAR-10 recipe width (channels 64/128/256, z 128, batch 32, f32), "
+          f"scan_steps {IMAGE_SCAN}, on {IMAGE_N} uint8 images: {steps // 2} vanilla + "
+          f"{steps // 2} intro steps in {run_s:.2f} s (first call, warm-up and capture "
+          f"included); loss_e {last['loss_e']:.6g}, loss_d {last['loss_d']:.6g}, rec "
+          f"{last['rec']:.6g}; u8norm launches {counts['u8norm']} (one a step: eager warm-up "
+          f"steps and graph replays; {captured['u8norm']} recorded in 2 captures); intro step "
+          f"after warm-up, 16-step windows: {timing}; on {card}", flush=True)
+    return cfg, counts, ms
 
 
 def phase_image_routes(device, cfg):
@@ -1058,15 +1252,17 @@ def phase_bootstrap_image(device, results_dir: str):
     from soft_intro_vae_torch.train.image import train_soft_intro_vae
 
     cfg = image_config(device, results_dir, bootstrap=True, gamma_r=1.0, copy_to_target_freq=1,
-                       num_epochs=1, num_vae=0)
+                       num_epochs=1, num_vae=0, scan_steps=IMAGE_SCAN)
     spec, ds = image_dataset()
     reset_counts()
     t0 = time.perf_counter()
     state, summary = train_soft_intro_vae(cfg, ds, spec)
     torch.cuda.synchronize()
     steps = IMAGE_N // cfg.batch_size
-    check(summary["steps"] == steps and read_counts()["u8norm"] == steps,
-          f"bootstrap: {summary['steps']} steps, {read_counts()['u8norm']} u8norm launches")
+    check(summary["steps"] == steps and read_counts()["u8norm"] == steps
+          and captured_counts() == {"u8norm": 1},
+          f"bootstrap: {summary['steps']} steps, {read_counts()['u8norm']} u8norm launches, "
+          f"{captured_counts()} recorded in captures")
     online, target = state.decoder.state_dict(), state.target_decoder.state_dict()
     check(set(online) == set(target), "target and online decoders differ in names")
     for k, v in online.items():
@@ -1077,7 +1273,8 @@ def phase_bootstrap_image(device, results_dir: str):
           "a target decoder parameter takes a gradient")
     last = summary["last_metrics"]
     check(all(math.isfinite(v) for v in last.values()), f"non-finite bootstrap metrics: {last}")
-    print(f"bootstrap image: {steps} bootstrap intro steps (gamma_r 1.0) in "
+    print(f"bootstrap image: {steps} bootstrap intro steps (gamma_r 1.0, scan_steps "
+          f"{IMAGE_SCAN}: graph replays) in "
           f"{time.perf_counter() - t0:.2f} s; loss_e {last['loss_e']:.6g}, loss_d "
           f"{last['loss_d']:.6g}; after the sync the target's {len(target)} tensors equal the "
           f"decoder's and share no storage with them", flush=True)
@@ -1101,14 +1298,29 @@ def main() -> int:
     peak_name, peaks = peaks_for(name)
     print(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
+    start = laps = None
+
+    def lap(name: str) -> None:  # seconds since the previous phase ended
+        nonlocal start, laps
+        now = time.perf_counter()
+        laps = [] if laps is None else laps + [f"{name} {now - start:.1f}"]
+        start = now
+
+    lap("")
+    began = start
     print(phase_build(), flush=True)
+    lap("build")
     chamfer = phase_kernels(device, peak_name, peaks)
     worst, times = phase_norm_kernels(device)
     print(norm_line(worst, times, peaks), flush=True)
+    lap("kernels chamfer and fused norm")
     # the trainers' checkpoints (~100 MB for 3D, ~0.65 GB for style) go to
     # directories removed afterwards
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         counts_3d = phase_train_3d(device, card, results_dir)
+    lap("train 3d")
+    phase_graph_3d(device)
+    lap("graph 3d")
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         cfg, counts_style = phase_style_train(device, card, results_dir)
     _, mix = phase_style_step(device, card, cfg)
@@ -1116,12 +1328,18 @@ def main() -> int:
     phase_style_routes(device, cfg)
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_style_transition(device, results_dir)
+    lap("style")
     u8 = phase_u8norm(device, peaks)
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
-        cfg_image, counts_image = phase_train_image(device, card, results_dir)
-    phase_image_routes(device, cfg_image)
+        cfg_image, counts_image, _ = phase_train_image(device, card, results_dir)
+    phase_image_routes(device, dataclasses.replace(cfg_image, scan_steps=1))
+    lap("image")
+    phase_graph_image(device)
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_bootstrap_image(device, results_dir)
+    lap("graph image and bootstrap")
+    print(f"timing (s): {', '.join(laps)}; build to last phase "
+          f"{time.perf_counter() - began:.1f}", flush=True)
     chamfer["launches"] = counts_3d["chamfer_nearest"]
     records = [chamfer] + norm_records(worst, times, peaks, totals)
     for rec in records[1:]:

@@ -60,7 +60,9 @@ def _image_flags(p: argparse.ArgumentParser, gamma_r_default: float) -> None:
     p.add_argument("--result_dir", type=str, default=None)
     p.add_argument("--num_devices", type=int, default=None, help="not ported yet beyond 1")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
-    p.add_argument("--scan-steps", type=int, default=1, help="not ported yet beyond 1")
+    p.add_argument("--scan-steps", type=int, default=1,
+                   help="K train steps a call: a CUDA graph of one step replayed K times "
+                        "on the card, K eager steps on the CPU")
     p.add_argument("--no-synthetic-fallback", action="store_true",
                    help="fail when the dataset files are absent instead of "
                         "substituting synthetic images")

@@ -41,7 +41,10 @@ def kl_divergence(mu: Tensor, logvar: Tensor, mu_o: Scalar = 0.0, logvar_o: Scal
         raise NotImplementedError(f"unknown reduce: {reduce!r}")
     mu = mu.float()
     logvar = logvar.float()
-    logvar_o = torch.as_tensor(logvar_o, dtype=torch.float32, device=mu.device)
+    if isinstance(logvar_o, Tensor):
+        logvar_o = logvar_o.to(dtype=torch.float32, device=mu.device)
+    else:  # a fill on the device, not a host copy: the step stays capturable
+        logvar_o = torch.full((), float(logvar_o), dtype=torch.float32, device=mu.device)
     kl = -0.5 * torch.sum(
         1.0 + logvar - logvar_o - torch.exp(logvar - logvar_o)
         - torch.square(mu - mu_o) * torch.exp(-logvar_o),

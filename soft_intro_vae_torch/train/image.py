@@ -16,6 +16,11 @@ normalized whatever ``host_storage`` says (the JAX trainer keys the table on
 ``host_storage`` and would train a caller's uint8 dataset on 0..255 pixels
 when it says "float32"). Step metrics stay on the device and are fetched
 once per epoch and every ``nan_check_iter`` steps.
+
+With ``scan_steps`` K > 1, K host batches go to the device as one (K, B, H,
+W, C) transfer, the last chunk of an epoch shorter where the batches run
+out, and one K-step call takes each chunk: a CUDA graph of one step replayed
+once a batch on the card, K eager steps on the CPU (train/graph.py).
 """
 
 from __future__ import annotations
@@ -103,12 +108,9 @@ def _check_supported(cfg: ImageConfig) -> None:
     if cfg.num_devices not in (None, 1) or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("data parallelism and multi-process runs are not ported yet "
                                   "(ROADMAP.md Queue 1, item 11)")
-    if cfg.scan_steps != 1:
-        raise NotImplementedError("scan_steps > 1 (a K-step CUDA graph) is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 4)")
     if cfg.remat:
         raise NotImplementedError("activation checkpointing (remat) is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 6)")
+                                  "(ROADMAP.md Queue 1, item 13)")
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype must be one of {list(DTYPES)}, got {cfg.compute_dtype!r}")
 
@@ -147,8 +149,16 @@ def build_image_training(cfg: ImageConfig, spec: ImageSpec):
                           beta_neg=cfg.beta_neg, gamma_r=cfg.gamma_r, scale=spec.scale,
                           loss_type=cfg.recon_loss_type, bootstrap=cfg.bootstrap,
                           u8norm_impl=cfg.u8norm_impl)
-    vanilla_step, intro_step = build_train_steps(cfg=step_cfg, input_lut=UNIT_LUT, nhwc=True)
+    vanilla_step, intro_step = build_train_steps(cfg=step_cfg, scan_steps=cfg.scan_steps,
+                                                 input_lut=UNIT_LUT, nhwc=True)
     return state, vanilla_step, intro_step
+
+
+def fires(cur_iter: int, k: int, every: int) -> bool:
+    """Whether a multiple of ``every`` lies in [cur_iter, cur_iter + k): the
+    JAX trainer's cadence of figures and NaN checks under K-step calls
+    (train/image.py:346-353); at k = 1 it is ``cur_iter % every == 0``."""
+    return (cur_iter + k - 1) // every != (cur_iter - 1) // every
 
 
 @torch.no_grad()
@@ -227,16 +237,30 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
             for batch in dataset.epoch(cfg.batch_size, drop_last=True, epoch_index=epoch):
                 yield augment_mirror(batch, aug_rng) if cfg.mirror_augment else batch
 
+        def host_chunks():
+            # scan_steps batches stacked into one (K, B, H, W, C) transfer; a
+            # short trailing chunk replays the same graph fewer times
+            buf = []
+            for batch in host_batches():
+                buf.append(batch)
+                if len(buf) == cfg.scan_steps:
+                    yield np.stack(buf)
+                    buf = []
+            if buf:
+                yield np.stack(buf)
+
+        scan = cfg.scan_steps > 1
         device_metrics = []
-        for x in device_prefetch(host_batches(), size=2, put_fn=put_fn):
+        for x in device_prefetch(host_chunks() if scan else host_batches(), size=2, put_fn=put_fn):
+            k = int(x.shape[0]) if scan else 1
             state, m = step_fn(state, x)
             device_metrics.append(m)
-            if cfg.save_figures and cur_iter % cfg.test_iter == 0:
-                _save_sample_grid(state, x, cfg, cur_iter)
-            if cfg.nan_check_iter and cur_iter % cfg.nan_check_iter == 0:
+            if cfg.save_figures and fires(cur_iter, k, cfg.test_iter):
+                _save_sample_grid(state, x[0] if scan else x, cfg, cur_iter)
+            if cfg.nan_check_iter and fires(cur_iter, k, cfg.nan_check_iter):
                 if not bool(torch.isfinite(torch.stack(list(m.values()))).all()):
                     raise SystemError("loss is NaN")
-            cur_iter += 1
+            cur_iter += k
 
         ep_mean = _epoch_means(device_metrics)  # one device->host fetch an epoch
         tracker.update(ep_mean)

@@ -50,9 +50,9 @@ class TrainState:
         model = model.to(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return cls(model=model, opt_e=optim.adam(model.encoder.parameters(), lr_e),
-                   opt_d=optim.adam(model.decoder.parameters(), lr_d), generator=gen,
-                   device=device, lr_e=lr_e, lr_d=lr_d)
+        return cls(model=model, opt_e=optim.adam(model.encoder.parameters(), lr_e, device=device),
+                   opt_d=optim.adam(model.decoder.parameters(), lr_d, device=device),
+                   generator=gen, device=device, lr_e=lr_e, lr_d=lr_d)
 
     def set_lr(self, lr_e: float, lr_d: float) -> None:
         self.lr_e, self.lr_d = lr_e, lr_d
@@ -67,8 +67,8 @@ class TrainState:
 
     def load_state_dict(self, sd: dict) -> None:
         self.model.load_state_dict(sd["model"])
-        self.opt_e.load_state_dict(sd["opt_e"])
-        self.opt_d.load_state_dict(sd["opt_d"])
+        optim.load_state_dict(self.opt_e, sd["opt_e"])  # either Adam form (train/optim.py)
+        optim.load_state_dict(self.opt_d, sd["opt_d"])
         self.generator.set_state(sd["rng"])
         self.step = int(sd["step"])
         self.set_lr(float(sd["lr_e"]), float(sd["lr_d"]))

@@ -53,6 +53,7 @@ from soft_intro_vae_torch.ops.losses import (
     reparameterize,
 )
 from soft_intro_vae_torch.ops.u8norm import u8_to_unit_nchw
+from soft_intro_vae_torch.train.graph import k_steps
 from soft_intro_vae_torch.train.state import TrainState
 
 Tensor = torch.Tensor
@@ -151,10 +152,14 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
     ``UNIT_LUT`` runs ops/u8norm.py (the CUDA kernel on the card), any other
     table is looked up; without a table a uint8 batch raises.
     ``cfg.bootstrap`` needs a state with a ``target_decoder``.
+
+    With ``scan_steps > 1`` the signature becomes ``step(state, xs: (K, B,
+    ...)) -> (state, metrics: (K,) each)``, as the JAX scan's: K steps a
+    call, a CUDA graph replayed once a step on the card, eager steps on the
+    CPU (train/graph.py). ``scan_steps == 1`` steps are eager everywhere.
     """
-    if scan_steps != 1:
-        raise NotImplementedError("scan_steps > 1 (a K-step CUDA graph) is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 4)")
+    if scan_steps < 1:
+        raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
     recon_mean, recon_per_sample = _make_recon_fns(cfg.loss_type, cfg.chamfer_impl)
     kl_mean = partial(kl_divergence, logvar_o=cfg.prior_logvar, reduce="mean")
     kl_none = partial(kl_divergence, logvar_o=cfg.prior_logvar, reduce="none")
@@ -294,4 +299,6 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
         )
         return state, metrics
 
+    if scan_steps > 1:
+        return k_steps(vanilla_step), k_steps(intro_step)
     return vanilla_step, intro_step

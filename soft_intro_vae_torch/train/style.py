@@ -13,9 +13,9 @@ machine has no PyYAML). Images are fed NCHW: float batches are normalised on
 the host (x / 127.5 - 1, as the JAX trainer does for float feeds and for
 every transition batch); uint8 batches go to the device as bytes and are
 normalised there by a 256-entry table lookup, exact for every byte.
-Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: FID, sample grids, streaming TFRecords, data parallelism and
-activation checkpointing.
+``save_figures`` saves an EMA sample grid at the report cadence. Not ported
+yet, and raising ``NotImplementedError`` naming their ROADMAP item: FID,
+streaming TFRecords, data parallelism and activation checkpointing.
 """
 
 from __future__ import annotations
@@ -289,6 +289,25 @@ class _Feed:
         return x.permute(0, 3, 1, 2).contiguous()
 
 
+@torch.no_grad()
+def _save_style_samples(model: StyleModel, cfg: StyleConfig, state: StyleTrainState, lod: int,
+                        epoch: int, nimg: int, count: int = 16):
+    """EMA sample grid at the report cadence (reference save_sample,
+    train_style_soft_intro_vae.py:408-413; the JAX trainer's
+    ``_save_style_samples``), drawn from a generator seeded from the run's
+    seed, the epoch and the images seen, so the training draws stay as they are."""
+    from soft_intro_vae_torch.utils.plotting import save_image_grid
+
+    gen = torch.Generator(device=state.device)
+    gen.manual_seed(state.generator.initial_seed() + 40000 + epoch * 1000 + nimg // 1000)
+    z = torch.randn((count, cfg.latent_space_size), generator=gen, device=state.device)
+    rec = model.generate(state.ema, gen, lod, None, z, mixing=False, truncation=True,
+                         update_avg=False)
+    img = np.clip(rec.permute(0, 2, 3, 1).float().cpu().numpy() * 0.5 + 0.5, 0, 1)
+    path = os.path.join(cfg.output_dir, "samples", f"epoch{epoch}_nimg{nimg}.jpg")
+    return save_image_grid(img, path, nrow=4)
+
+
 def _epoch_means(device_metrics) -> dict:
     """One device->host fetch for a whole epoch of step metrics."""
     keys = list(device_metrics[0])
@@ -300,8 +319,6 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
     """Run the style recipe; returns (state, summary)."""
     if cfg.with_fid:
         raise NotImplementedError("FID needs the Inception port (ROADMAP.md Queue 1, item 10)")
-    if cfg.save_figures:
-        raise NotImplementedError("sample grids need the plotting port (ROADMAP.md Queue 1, item 6)")
     resolve_device(cfg.device)  # fail before loading the data, not after
     if dataset is None:
         dataset = make_style_dataset(cfg)
@@ -381,6 +398,8 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
             if lod2batch.is_time_to_save():
                 # mid-epoch snapshot: resume restarts this epoch
                 ckpt.save(state, epoch, state.step, aux=aux(lod, False))
+            if cfg.save_figures and lod2batch.is_time_to_report():
+                _save_style_samples(model, cfg, state, lod, epoch, lod2batch.iteration)
             # sub-epoch NaN abort: one small sync every nan_check_iter steps
             if cfg.nan_check_iter and len(device_metrics) % cfg.nan_check_iter == 0:
                 if not bool(torch.isfinite(torch.stack(list(m.values()))).all()):

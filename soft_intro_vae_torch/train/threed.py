@@ -105,8 +105,9 @@ class ThreeDConfig:
         )
 
 
-def build_3d_training(cfg: ThreeDConfig):
-    """Returns ``(state, vanilla_step, intro_step)`` on ``cfg.device``."""
+def build_3d_training(cfg: ThreeDConfig, scan_steps: int = 1):
+    """Returns ``(state, vanilla_step, intro_step)`` on ``cfg.device``; with
+    ``scan_steps`` K > 1 the steps take (K, B, N, 3) clouds (train/graph.py)."""
     if cfg.reconstruction_loss.lower() != "chamfer":
         raise ValueError(f"Invalid reconstruction loss. Accepted `chamfer`, got: {cfg.reconstruction_loss}")
     if cfg.num_devices not in (None, 1):
@@ -132,7 +133,7 @@ def build_3d_training(cfg: ThreeDConfig):
         detach_expelbo_targets=True,
         chamfer_impl=cfg.chamfer_impl,
     )
-    vanilla_step, intro_step = build_train_steps(cfg=step_cfg)
+    vanilla_step, intro_step = build_train_steps(cfg=step_cfg, scan_steps=scan_steps)
     return state, vanilla_step, intro_step
 
 
@@ -152,19 +153,40 @@ def calc_jsd_valid(state: TrainState, valid_points: np.ndarray, cfg: ThreeDConfi
 
 
 def _epoch_means(device_metrics) -> dict:
-    """One device->host fetch for a whole epoch of step metrics."""
+    """One device->host fetch for a whole epoch of step metrics. The (K,)
+    metrics of K-step calls are concatenated, so every step weighs equally."""
     if not device_metrics:
         return {}
     keys = list(device_metrics[0])
-    table = torch.stack([torch.stack([m[k] for m in device_metrics]) for k in keys])
+    table = torch.stack([torch.cat([m[k].reshape(-1) for m in device_metrics]) for k in keys])
     means = table.double().mean(dim=1).cpu().tolist()
     return dict(zip(keys, means))
 
 
+@torch.no_grad()
+def _save_epoch_panel(state: TrainState, train_pts: np.ndarray, cfg: ThreeDConfig, epoch: int):
+    """The per-epoch 3x5 panel of real, reconstructed and sampled clouds
+    (3d:396-426; the JAX trainer's train/threed.py:237-250), the encoder in
+    eval mode, the samples drawn from a generator seeded from the run's seed
+    and the epoch, so the training draws stay as they are."""
+    from soft_intro_vae_torch.utils.plotting import save_pointcloud_panel
+
+    x5 = torch.from_numpy(train_pts[:5]).to(state.device)
+    gen = torch.Generator(device=state.device)
+    gen.manual_seed(state.generator.initial_seed() + 31337 + epoch)
+    noise5 = cfg.prior_std * torch.randn((5, cfg.z_size), generator=gen, device=state.device)
+    state.model.eval()
+    try:
+        rec5 = state.decoder(state.encoder(x5)[0])
+        fake5 = state.decoder(noise5)
+    finally:
+        state.model.train()
+    return save_pointcloud_panel([train_pts[:5], rec5.cpu().numpy(), fake5.cpu().numpy()],
+                                 os.path.join(cfg.results_dir, "samples", f"figure_{epoch}.png"))
+
+
 def train_soft_intro_vae_3d(cfg: ThreeDConfig):
     """Run the 3D recipe; returns (state, summary)."""
-    if cfg.save_figures:
-        raise NotImplementedError("save_figures needs the plotting port (ROADMAP.md Queue 1, item 6)")
     resolve_device(cfg.device)  # fail before loading the data, not after
     if cfg.use_synthetic:
         train_pts, _ = SyntheticClouds(cfg.synthetic_n, cfg.n_points, seed=max(cfg.seed, 0)).load_all()
@@ -224,6 +246,8 @@ def train_soft_intro_vae_3d(cfg: ThreeDConfig):
         if cfg.verbose and ep_mean:
             shown = {k: round(v, 3) for k, v in ep_mean.items() if k in ("rec", "kl_real", "kl_fake", "diff_kl")}
             print(f"epoch {epoch}: {shown}")
+        if cfg.save_figures:
+            _save_epoch_panel(state, train_pts, cfg, epoch)
 
         if epoch % cfg.valid_frequency == 0:
             jsd = calc_jsd_valid(state, valid_pts, cfg)

@@ -1,14 +1,18 @@
-"""Image grids (port of the image part of soft_intro_vae_tpu/utils/plotting.py).
+"""Image grids and point-cloud panels (port of the image and 3D parts of
+soft_intro_vae_tpu/utils/plotting.py).
 
 The reference saves [real | reconstruction | sample] grids with torchvision's
-``vutils.save_image`` (train_soft_intro_vae.py:539-540,641-646). matplotlib is
-imported lazily with the Agg backend; ``save_image_grid`` is a no-op
-returning None where matplotlib is missing, as on the card's machine.
+``vutils.save_image`` (train_soft_intro_vae.py:539-540,641-646) and the 3D
+trainer's real / reconstruction / sample panel (train_soft_intro_vae_3d.py:
+396-426). matplotlib is imported lazily with the Agg backend; each function
+is a no-op returning None where matplotlib is missing, as on the card's
+machine.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Sequence
 
 import numpy as np
 
@@ -49,4 +53,31 @@ def save_image_grid(images: np.ndarray, path: str, nrow: int = 8, value_range=(0
         imgs = np.repeat(imgs, 3, axis=-1)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     plt.imsave(path, make_grid(imgs, nrow=nrow))
+    return path
+
+
+def save_pointcloud_panel(rows: Sequence[np.ndarray], path: str, n_cols: int = 5,
+                          in_u_sphere: bool = True, s: int = 4, color: str = "dodgerblue"):
+    """A len(rows) x n_cols panel of 3D point clouds, each row (n_cols, N, 3)
+    (pcutil.py:110-150); the path, or None without matplotlib."""
+    plt = _plt()
+    if plt is None:
+        return None
+    n_rows = len(rows)
+    fig = plt.figure(dpi=200, figsize=(2 * n_cols, 2 * n_rows))
+    for r, row in enumerate(rows):
+        for k in range(min(n_cols, row.shape[0])):
+            ax = fig.add_subplot(n_rows, n_cols, r * n_cols + k + 1, projection="3d")
+            pc = row[k]
+            ax.scatter(pc[:, 0], pc[:, 1], pc[:, 2], s=s, c=color)
+            if in_u_sphere:
+                ax.set_xlim3d(-0.5, 0.5)
+                ax.set_ylim3d(-0.5, 0.5)
+                ax.set_zlim3d(-0.5, 0.5)
+            ax.set_xticklabels([])
+            ax.set_yticklabels([])
+            ax.set_zticklabels([])
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    fig.savefig(path, bbox_inches="tight")
+    plt.close(fig)
     return path

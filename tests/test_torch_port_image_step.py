@@ -19,6 +19,7 @@ Parameters and running means after the last step: every element within atol
 g / |g|, so a gradient element that is rounding noise moves by a few 1e-7 in
 one package and not the other). Running variances are left to
 tests/test_torch_port_conv.py, which applies flax's biased-variance factor.
+One intro step in bfloat16 is held to the JAX package's: see that test.
 """
 
 import jax
@@ -218,3 +219,37 @@ def test_bootstrap_needs_a_target_decoder():
     _, intro = _port_steps(True)
     with pytest.raises(ValueError, match="target_decoder"):
         intro(state, torch.from_numpy(_batch(np.random.RandomState(26))))
+
+
+def test_bfloat16_intro_step_against_the_jax_package(jax_setup):
+    """One intro step with both packages' nets in bfloat16 (compute_dtype;
+    parameters, BN and losses in f32), same weights, batch and noises. The
+    nets round at other places (tests/test_torch_port_conv.py), so the losses
+    differ by bf16 roundings. Measured at 3 seeds: loss_e/loss_d/rec/kl_real
+    within rel 6.0e-4, kl_fake/kl_rec (KLs of decoded-then-encoded images,
+    two bf16 passes deep) within 5.6e-3; held to 2e-3 and 2e-2."""
+    kw = dict(cdim=CDIM, zdim=Z, channels=CH, image_size=IMG)
+    enc, dec = JaxEncoder(**kw), JaxDecoder(**kw)
+    ve = jax.jit(lambda k: enc.init(k, jnp.zeros((1, IMG, IMG, CDIM)), train=False))(jax.random.key(0))
+    vd = jax.jit(lambda k: dec.init(k, jnp.zeros((1, Z)), train=False))(jax.random.key(1))
+    encode, decode = make_model_fns(JaxEncoder(dtype=jnp.bfloat16, **kw),
+                                    JaxDecoder(dtype=jnp.bfloat16, **kw))
+    opt = joptim.adam()
+    _, jintro = jax_build_train_steps(encode=encode, decode=decode, optimizer=opt, donate=False,
+                                      input_lut=UNIT_LUT, cfg=JaxStepConfig(gamma_r=1e-8, **CFG))
+    jstate = JaxState.create(params_e=ve["params"], params_d=vd["params"],
+                             stats_e=ve["batch_stats"], stats_d=vd["batch_stats"],
+                             opt_e=opt.init(ve["params"]), opt_d=opt.init(vd["params"]),
+                             rng=jax.random.key(2), lr_e=LR, lr_d=LR)
+    model = SoftIntroVAE(compute_dtype=torch.bfloat16, **kw)
+    model.load_state_dict(_sd(jstate, False), strict=True)
+    state = TrainState.create(model, device=torch.device("cpu"), seed=0, lr_e=LR, lr_d=LR)
+    _, intro = _port_steps(False)
+    rs = np.random.RandomState(30)
+    x = _batch(rs)
+    nz = {k: rs.randn(B, Z).astype(np.float32) for k in INTRO_NOISES}
+    _, jm = jintro(jstate, jnp.asarray(x), {k: jnp.asarray(v) for k, v in nz.items()})
+    _, m = intro(state, torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in nz.items()})
+    for k, rel in (("loss_e", 2e-3), ("loss_d", 2e-3), ("rec", 2e-3), ("kl_real", 2e-3),
+                   ("kl_fake", 2e-2), ("kl_rec", 2e-2)):
+        assert float(m[k]) == pytest.approx(float(jm[k]), rel=rel), k

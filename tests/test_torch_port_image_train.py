@@ -16,11 +16,13 @@ import torch
 from soft_intro_vae_tpu.utils.torch_compat import load_reference_image_checkpoint
 from soft_intro_vae_torch.cli import main as cli
 from soft_intro_vae_torch.data.images import ArrayDataset, ImageSpec
+from soft_intro_vae_torch.train import image as image_trainer
 from soft_intro_vae_torch.train.image import (
-    ImageConfig, build_image_training, sync_target_decoder, train_soft_intro_vae)
+    ImageConfig, build_image_training, fires, sync_target_decoder, train_soft_intro_vae)
+from soft_intro_vae_torch.train.state import TrainState
 from soft_intro_vae_torch.utils import plotting
-from soft_intro_vae_torch.utils.checkpoint import load_pretrained
-from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
+from soft_intro_vae_torch.utils.checkpoint import Checkpointer, load_pretrained
+from tests.torch_port_fixtures import cuda_device, one_torch_thread  # noqa: F401
 
 SPEC = ImageSpec("cifar10", 16, (8, 16), 3)
 PREFIX = "cifar10_soft_intro_betas_1.0_16.0_1.0_"
@@ -185,8 +187,7 @@ def test_sample_grids_and_the_no_matplotlib_rule(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("with_fid", True, "item 10"), ("num_devices", 2, "item 11"), ("scan_steps", 4, "item 4"),
-    ("remat", True, "item 6"),
+    ("with_fid", True, "item 10"), ("num_devices", 2, "item 11"), ("remat", True, "item 13"),
 ])
 def test_options_of_later_slices_raise(tmp_path, field, value, item):
     cfg = _cfg(tmp_path, **{field: value})
@@ -207,3 +208,153 @@ def test_matmul_precision_sets_tf32(tmp_path):
             build_image_training(_cfg(tmp_path, matmul_precision="bf16"), SPEC)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _runs_equal(a, b):
+    (sa, ma), (sb, mb) = a, b
+    assert sa.step == sb.step and ma["steps"] == mb["steps"]
+    assert ma["last_metrics"] == mb["last_metrics"]
+    _assert_equal(_weights(sa), _weights(sb))
+    for oa, ob in ((sa.opt_e, sb.opt_e), (sa.opt_d, sb.opt_d)):
+        for p, q in zip(oa.state.values(), ob.state.values()):
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                torch.testing.assert_close(p[k], q[k], rtol=0, atol=0, msg=k)
+    torch.testing.assert_close(sa.generator.get_state(), sb.generator.get_state())
+
+
+@pytest.mark.parametrize("boot", [False, True], ids=["image", "bootstrap"])
+def test_scan_steps_epochs_equal_single_steps(tmp_path, boot):
+    """scan_steps=3 over 8 batches an epoch (chunks 3 + 3 + 2), one vanilla
+    and one intro epoch: the same run as scan_steps=1, to the bit (the port's
+    form of tests/test_integration_extras.py's scan-vs-sequential check)."""
+    data = _u8(32, seed=6)
+    kw = dict(bootstrap=True, gamma_r=1.0) if boot else {}
+    runs = [train_soft_intro_vae(_cfg(tmp_path, f"scan{k}", scan_steps=k, **kw),
+                                 ArrayDataset(data, seed=1), SPEC) for k in (1, 3)]
+    assert runs[1][1]["steps"] == runs[1][0].step == 16
+    _runs_equal(runs[1], runs[0])
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_cadence_matches_the_jax_trainer(k):
+    """Figures and NaN checks fire where the JAX trainer fires them
+    (soft_intro_vae_tpu/train/image.py:348-353), at k = 1 where the reference
+    fires them (cur_iter % every == 0)."""
+    for every in (1, 2, 5, 7, 200):
+        for cur_iter in range(0, 61, k):
+            jax_figures = cur_iter == 0 or (cur_iter + k - 1) // every != (cur_iter - 1) // every
+            jax_nan = (cur_iter + k - 1) // every != (cur_iter - 1) // every
+            assert fires(cur_iter, k, every) == jax_figures == jax_nan, (cur_iter, every)
+            if k == 1:
+                assert fires(cur_iter, k, every) == (cur_iter % every == 0)
+
+
+def test_figures_at_scan_steps_fire_where_a_multiple_of_test_iter_falls(tmp_path):
+    cfg = _cfg(tmp_path, save_figures=True, test_iter=2, num_epochs=1, scan_steps=3)
+    train_soft_intro_vae(cfg, ArrayDataset(_u8(32)), SPEC)
+    figs = sorted(os.listdir(tmp_path / "run" / "figures_cifar10"))
+    # chunks start at 0, 3, 6 and hold steps {0,1,2}, {3,4,5}, {6,7}
+    assert figs == ["image_0.jpg", "image_3.jpg", "image_6.jpg"]
+
+
+@pytest.mark.parametrize("command", ["image", "bootstrap"])
+def test_cli_scan_steps_reaches_the_config(monkeypatch, command):
+    seen = []
+    monkeypatch.setattr(image_trainer, "train_soft_intro_vae", seen.append)
+    cli.main([command, "-d", "cifar10", "--scan-steps", "8", "-c", "cpu"])
+    assert seen[0].scan_steps == 8 and seen[0].bootstrap == (command == "bootstrap")
+    assert cli.build_parser().parse_args(["image", "-d", "cifar10"]).scan_steps == 1
+
+
+def test_tensor_lr_equals_float_lr_across_a_change(tmp_path):
+    """Two K-step calls (K = 2) with set_lr between them: the LR tensor that
+    a graph reads gives the bits of torch.optim.Adam with a float LR."""
+    xs = torch.from_numpy(_u8(16, seed=7).reshape(4, 4, 16, 16, 3))
+    runs = []
+    for form in ("tensor", "float"):
+        state, _, intro = build_image_training(_cfg(tmp_path, scan_steps=2), SPEC)
+        assert isinstance(state.opt_e.param_groups[0]["lr"], torch.Tensor)
+        if form == "float":
+            state.opt_e = torch.optim.Adam(state.encoder.parameters(), lr=state.lr_e)
+            state.opt_d = torch.optim.Adam(state.decoder.parameters(), lr=state.lr_d)
+        lr = state.opt_d.param_groups[0]["lr"]
+        state, m1 = intro(state, xs[:2])
+        state.set_lr(7e-4, 3e-5)
+        state, m2 = intro(state, xs[2:])
+        if form == "tensor":  # filled in place, the same tensor
+            assert state.opt_d.param_groups[0]["lr"] is lr and float(lr) == 3e-5
+        runs.append((state, {k: torch.cat([m1[k], m2[k]]) for k in m1}))
+    (sa, ma), (sb, mb) = runs
+    for k in ma:
+        torch.testing.assert_close(ma[k], mb[k], rtol=0, atol=0, msg=k)
+    _assert_equal(_weights(sa), _weights(sb))
+
+
+def test_checkpoint_loads_across_adam_forms(tmp_path):
+    """A checkpoint of the float-LR Adam (the form of earlier checkpoints)
+    and one in the capturable, tensor-LR form of the card load into the
+    port's Adam, which keeps its own LR tensor and form; a step after the
+    load equals a step of the state that saved it."""
+    x = torch.from_numpy(_u8(4, seed=8))
+    saver, _, intro = build_image_training(_cfg(tmp_path, seed=3), SPEC)
+    saver.opt_e = torch.optim.Adam(saver.encoder.parameters(), lr=saver.lr_e)
+    saver.opt_d = torch.optim.Adam(saver.decoder.parameters(), lr=saver.lr_d)
+    intro(saver, x)
+    path = Checkpointer(str(tmp_path / "w")).save(saver, 1, 1)
+
+    def payload():  # a fresh load each time: loading shares the payload's tensors
+        return torch.load(path, weights_only=True)
+
+    def card():
+        sd = payload()
+        return {**sd, "opt_e": _capturable_form(sd["opt_e"]), "opt_d": _capturable_form(sd["opt_d"])}
+
+    for form in (payload, card):
+        sd = form()
+        state, _, step = build_image_training(_cfg(tmp_path, seed=4), SPEC)
+        lr = state.opt_e.param_groups[0]["lr"]
+        state.load_state_dict(sd)
+        group = state.opt_e.param_groups[0]
+        assert group["lr"] is lr and float(lr) == saver.lr_e and not group["capturable"]
+        assert all(s["step"].device.type == "cpu" and float(s["step"]) == 1
+                   for s in state.opt_e.state.values())
+        _, m = step(state, x)
+        saver_copy, _, _ = build_image_training(_cfg(tmp_path, seed=4), SPEC)
+        saver_copy.load_state_dict(payload())
+        saver_copy.opt_e = _float_adam(saver_copy.opt_e, saver_copy.encoder)
+        saver_copy.opt_d = _float_adam(saver_copy.opt_d, saver_copy.decoder)
+        _, want = intro(saver_copy, x)
+        assert {k: float(v) for k, v in m.items()} == {k: float(v) for k, v in want.items()}
+        _assert_equal(_weights(state), _weights(saver_copy))
+
+
+def _capturable_form(sd):
+    """An Adam state dict as the card's capturable Adam saves it."""
+    groups = [{**g, "capturable": True, "lr": torch.tensor(float(g["lr"]), dtype=torch.float64)}
+              for g in sd["param_groups"]]
+    return {"state": sd["state"], "param_groups": groups}
+
+
+def _float_adam(opt, module):
+    """The float-LR torch.optim.Adam holding ``opt``'s moments and counts."""
+    plain = torch.optim.Adam(module.parameters(), lr=float(opt.param_groups[0]["lr"]))
+    sd = opt.state_dict()
+    plain.load_state_dict({"state": sd["state"], "param_groups": [
+        {**g, "lr": float(g["lr"]), "capturable": False} for g in sd["param_groups"]]})
+    return plain
+
+
+@pytest.mark.cuda
+def test_graph_epochs_equal_single_steps_on_the_card(tmp_path, cuda_device):
+    """On the card scan_steps=3 replays CUDA graphs; the run equals the eager
+    scan_steps=1 run to the bit (TF32 off, cuDNN deterministic)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        data = _u8(32, seed=6)
+        runs = [train_soft_intro_vae(_cfg(tmp_path, f"scan{k}", scan_steps=k, device="cuda",
+                                          matmul_precision="float32"),
+                                     ArrayDataset(data, seed=1), SPEC) for k in (1, 3)]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    _runs_equal(runs[1], runs[0])

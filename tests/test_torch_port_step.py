@@ -39,7 +39,7 @@ from soft_intro_vae_torch.models.pointnet import SoftIntroVAE3D
 from soft_intro_vae_torch.train.state import TrainState
 from soft_intro_vae_torch.train.step import INTRO_NOISES, StepConfig, build_train_steps
 from soft_intro_vae_torch.utils.from_jax import pointnet_state_dict_from_jax
-from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
+from tests.torch_port_fixtures import cuda_device, one_torch_thread  # noqa: F401
 
 B, N, Z = 4, 32, 8
 LR = 5e-4
@@ -188,12 +188,87 @@ def test_draws_come_from_the_state_generator():
     assert run() == first
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    (dict(cfg=StepConfig(z_dim=Z), scan_steps=4), "item 4"),
-])
-def test_options_of_later_slices_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
-        build_train_steps(**kwargs)
+def _k_step_runs(fresh_state, phase, xs, scan, device="cpu"):
+    """(state, metrics) after the batches of ``xs``: one K-step call of
+    ``scan`` steps each, or single steps with their metrics stacked."""
+    state = _port_state(fresh_state())
+    if device != "cpu":
+        state = TrainState.create(state.model, device=torch.device(device), seed=0, lr_e=LR, lr_d=LR)
+    step = build_train_steps(cfg=StepConfig(**CFG), scan_steps=scan)[phase]
+    xs = torch.tensor(xs, device=device)
+    if scan == 1:
+        ms = [step(state, x)[1] for x in xs]
+        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+    chunks = [step(state, xs[i:i + scan])[1] for i in range(0, len(xs), scan)]
+    return state, {k: torch.cat([m[k] for m in chunks]) for k in chunks[0]}
+
+
+def _assert_same_runs(a, b):
+    (sa, ma), (sb, mb) = a, b
+    assert sa.step == sb.step and ma.keys() == mb.keys()
+    for k in ma:
+        torch.testing.assert_close(ma[k], mb[k], rtol=0, atol=0, msg=k)
+    for k, v in sa.model.state_dict().items():
+        torch.testing.assert_close(v, sb.model.state_dict()[k], rtol=0, atol=0, msg=k)
+    for oa, ob in ((sa.opt_e, sb.opt_e), (sa.opt_d, sb.opt_d)):
+        for p, q in zip(oa.state.values(), ob.state.values()):
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                torch.testing.assert_close(p[k], q[k], rtol=0, atol=0, msg=k)
+    torch.testing.assert_close(sa.generator.get_state(), sb.generator.get_state())
+
+
+@pytest.mark.parametrize("phase", [0, 1], ids=["vanilla", "intro"])
+def test_k_steps_equal_single_steps(jax_setup, phase):
+    """scan_steps=3 on the CPU: one call of three steps gives (3,) metrics
+    under the names the JAX step (and so its scan) returns, equal to three
+    single port steps, with the same weights, Adam state and generator
+    after. With the golden tests above (port step = JAX step) and the JAX
+    package's tests/test_step.py (JAX scan = sequential JAX steps) this holds
+    the port's K-step to the JAX scan."""
+    fresh_state, *jsteps = jax_setup
+    rs = np.random.RandomState(13)
+    xs = np.stack([_clouds(rs) for _ in range(3)])
+    _, jm = jsteps[phase](fresh_state(), jnp.asarray(xs[0]))
+    single = _k_step_runs(fresh_state, phase, xs, 1)
+    scanned = _k_step_runs(fresh_state, phase, xs, 3)
+    assert set(scanned[1]) == set(jm)
+    assert all(v.shape == (3,) for v in scanned[1].values())
+    assert scanned[0].step == 3
+    _assert_same_runs(scanned, single)
+
+
+def test_scan_steps_take_a_leading_k_axis():
+    with pytest.raises(ValueError, match="scan_steps"):
+        build_train_steps(cfg=StepConfig(**CFG), scan_steps=0)
+    torch.manual_seed(0)
+    state = TrainState.create(SoftIntroVAE3D(z_dim=Z, n_points=N), device=torch.device("cpu"),
+                              seed=0, lr_e=LR, lr_d=LR)
+    _, intro = build_train_steps(cfg=StepConfig(**CFG), scan_steps=2)
+    with pytest.raises(ValueError, match="K >= 1"):
+        intro(state, torch.zeros((0, B, N, 3)))
+    # a short chunk: k < K steps, (k,) metrics
+    state, m = intro(state, torch.tensor(_clouds(np.random.RandomState(3)))[None])
+    assert state.step == 1 and all(v.shape == (1,) for v in m.values())
+
+
+@pytest.mark.cuda
+def test_graph_k_steps_equal_eager_steps_on_the_card(jax_setup, cuda_device):
+    """On the card a K-step call replays a captured CUDA graph: two calls of
+    four steps (the first three of them the eager warm-up) equal eight eager
+    steps, chamfer kernel included. PyTorch's deterministic kernels are on:
+    the chamfer backward's scatter_add_ otherwise sums with atomics in no
+    fixed order, and two eager runs differ in the last bits."""
+    fresh_state, *_ = jax_setup
+    rs = np.random.RandomState(14)
+    xs = np.stack([_clouds(rs) for _ in range(8)])
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        graphed = _k_step_runs(fresh_state, 1, xs, 4, cuda_device)
+        eager = _k_step_runs(fresh_state, 1, xs, 1, cuda_device)
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    _assert_same_runs(graphed, eager)
 
 
 def test_image_default_branches_run():

@@ -23,6 +23,7 @@ from soft_intro_vae_torch.data.shapenet import ShapeNetDataset, SyntheticClouds,
 from soft_intro_vae_torch.metrics.jsd import jsd_between_point_cloud_sets
 from soft_intro_vae_torch.train.threed import (
     ThreeDConfig, build_3d_training, calc_jsd_valid, train_soft_intro_vae_3d)
+from soft_intro_vae_torch.utils import plotting
 from soft_intro_vae_torch.utils.checkpoint import Checkpointer
 from soft_intro_vae_torch.utils.device import resolve_device
 from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
@@ -124,11 +125,23 @@ def test_cuda_default_entry_points_raise_without_a_gpu(tmp_path, monkeypatch):
 
 def test_options_of_later_slices_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_soft_intro_vae_3d(_cfg(tmp_path, save_figures=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_3d_training(_cfg(tmp_path, num_devices=2))
     with pytest.raises(ValueError, match="chamfer"):
         build_3d_training(_cfg(tmp_path, reconstruction_loss="mse"))
+
+
+def test_save_figures_writes_the_epoch_panel(tmp_path, monkeypatch):
+    """save_figures: one real / reconstruction / sample panel an epoch (the
+    JAX trainer's samples/figure_{epoch}.png), drawn without touching the
+    training draws; without matplotlib the panel is skipped."""
+    plain, _ = train_soft_intro_vae_3d(_cfg(tmp_path, resume=False, results_dir=str(tmp_path / "a")))
+    state, summary = train_soft_intro_vae_3d(_cfg(tmp_path, resume=False, save_figures=True))
+    assert sorted(os.listdir(tmp_path / "run" / "samples")) == ["figure_1.png", "figure_2.png"]
+    for a, b in zip(state.model.state_dict().values(), plain.model.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert plotting.save_pointcloud_panel([np.zeros((5, 8, 3))] * 3, str(tmp_path / "p.png"))
+    monkeypatch.setattr(plotting, "_plt", lambda: None)
+    assert plotting.save_pointcloud_panel([np.zeros((5, 8, 3))], str(tmp_path / "q.png")) is None
 
 
 def test_calc_jsd_valid_is_deterministic(tmp_path):

@@ -16,3 +16,12 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(saved)
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device, for tests marked ``cuda``; they skip without one
+    (decided here, when the test runs, never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs these paths on the card")
+    return torch.device("cuda", 0)
