@@ -55,7 +55,20 @@ Phases, each printing one line; any failure exits non-zero:
               steps from the same seed on the same uint8 batches, bit-equal
               as in 4b;
  12. bootstrap image: one bootstrap epoch at scan_steps 8; the target
-              decoder's sync is a copy into tensors of its own.
+              decoder's sync is a copy into tensors of its own;
+ 13. toy:     ``train_soft_intro_vae_toy`` at the toy CLI recipe's width
+              (8Gaussians, z 2, 3 hidden layers of 256, batch 512), 100
+              vanilla and 200 intro iterations, then its final metrics (the
+              gnELBO over the 1024x1024 grid, sample KL and JSD); ms per
+              iteration, device operations and idle share (torch.profiler),
+              vanilla and intro; one intro step against the CPU's;
+ 14. fid:     the FID Inception (random init calibrated on the card) against
+              its CPU forward, TF32 off, and its speed with TF32 off and on;
+              Newton-Schulz against scipy's sqrtm at 2048x2048; a with_fid
+              CIFAR-10 run at scan_steps 8 (u8norm launches = steps + real
+              uint8 batches, no graph captured across the FID between graph
+              calls, losses bit-equal to the run without FID); the style FID
+              of the EMA generator at LOD 2.
 Launch counts are launches on the device: a wrapper's calls, less those
 recorded into a CUDA graph's capture, plus those its replays made
 (train/graph.py).
@@ -1280,6 +1293,260 @@ def phase_bootstrap_image(device, results_dir: str):
           f"decoder's and share no storage with them", flush=True)
 
 
+# the toy slice: the toy CLI's recipe (tools/torch_profile_toy.py RECIPE:
+# 8Gaussians, z 2, 3 hidden layers of 256, batch 512, betas 0.2/0.3/0.9), its
+# depth cut from 30000 iterations to 300 and its vanilla warm-up from 2000 to
+# 100, so that 200 introspective iterations run
+TOY_ITERS = 300
+TOY_NUM_VAE = 100
+TOY_PROFILE_ITERS = 50  # iterations timed, then as many traced, each phase
+# one intro step on the card against the same step on the CPU, same weights,
+# batch and injected noises, TF32 off: loss_e comes before any update and
+# loss_d after the E phase's Adam update (float32 bias corrections on the card,
+# float64 on the CPU), each within this relative distance
+TOY_RTOL = 1e-5
+
+
+def phase_toy(device, card: str, results_dir: str):
+    """``train_soft_intro_vae_toy`` at the toy recipe's width on the card,
+    the final metrics (gnELBO over the 1024x1024 grid, sample KL and JSD)
+    included; ms per iteration, device operations and idle share, vanilla
+    and intro; one intro step against the CPU's."""
+    import numpy as np
+    import torch
+
+    from soft_intro_vae_torch.data.toy import ToyDataset
+    from soft_intro_vae_torch.train.step import INTRO_NOISES
+    from soft_intro_vae_torch.train.toy import ToyConfig, build_toy, train_soft_intro_vae_toy
+    from tools.torch_profile_toy import RECIPE, toy_phases
+
+    cfg = ToyConfig(n_iter=TOY_ITERS, num_vae=TOY_NUM_VAE, test_iter=100, seed=0,
+                    device=str(device), verbose=False, result_dir=results_dir, **RECIPE)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, res = train_soft_intro_vae_toy(cfg)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(state.step == TOY_ITERS and state.device.type == "cuda", f"toy run: step {state.step}")
+    check(all(math.isfinite(v) for v in res.values()), f"non-finite toy metrics: {res}")
+    check(not any(counts.values()), f"the toy path launched a hand-written kernel: {counts}")
+    with open(os.path.join(results_dir, "results_log_soft_intro_vae.txt")) as f:
+        line = f.read()
+    check(line.startswith("8Gaussians_beta_kl_0.3_beta_neg_0.9_beta_rec_0.2_gnelbo_"),
+          f"toy results line: {line!r}")
+
+    prof = toy_phases(device, TOY_PROFILE_ITERS)
+
+    # one intro step on the card and on the CPU from the same weights
+    card_state, _, card_intro = build_toy(cfg)
+    cpu_state, _, cpu_intro = build_toy(dataclasses.replace(cfg, device="cpu"))
+    cpu_state.model.load_state_dict({k: v.cpu() for k, v in card_state.model.state_dict().items()})
+    rs = np.random.RandomState(21)
+    x = ToyDataset(seed=21).next_batch(cfg.batch_size)
+    noises = {k: rs.randn(cfg.batch_size, cfg.z_dim).astype(np.float32) for k in INTRO_NOISES}
+    with no_tf32():
+        _, m_card = card_intro(card_state, torch.from_numpy(x).to(device),
+                               {k: torch.from_numpy(v).to(device) for k, v in noises.items()})
+        losses = {k: float(m_card[k]) for k in ("loss_e", "loss_d")}
+    _, m_cpu = cpu_intro(cpu_state, torch.from_numpy(x),
+                         {k: torch.from_numpy(v) for k, v in noises.items()})
+    rel = {k: abs(v - float(m_cpu[k])) / abs(float(m_cpu[k])) for k, v in losses.items()}
+    check(all(r <= TOY_RTOL for r in rel.values()),
+          f"toy intro step, card {losses} vs CPU {({k: float(m_cpu[k]) for k in losses})}")
+    parts = [f"{phase} {r['ms_iter']:.3f} ms/iteration ({r['device_ops_iter']:.0f} device "
+             f"operations, device busy {r['busy_ms_iter']:.3f} ms, idle {r['idle_share_untraced']:.1%} "
+             f"of the untraced iteration)" for phase, r in prof.items()]
+    print(f"toy: train_soft_intro_vae_toy at the CLI recipe's width (8Gaussians, z 2, 3x256, "
+          f"batch 512, betas 0.2/0.3/0.9), {TOY_NUM_VAE} vanilla + {TOY_ITERS - TOY_NUM_VAE} "
+          f"intro iterations and the final metrics in {run_s:.2f} s: gn_elbo {res['gn_elbo']:.6g}, "
+          f"sample KL {res['sample_kl']:.6g}, JSD {res['jsd']:.6g}; hand-written kernel launches "
+          f"{counts} (none on this path); after warm-up, {TOY_PROFILE_ITERS} iterations each: "
+          + "; ".join(parts) + f"; one intro step card vs CPU, TF32 off: loss_e rel "
+          f"{rel['loss_e']:.2e}, loss_d rel {rel['loss_d']:.2e} (tolerance {TOY_RTOL:g}); "
+          f"on {card}", flush=True)
+
+
+FID_IMAGES = 2048      # the with_fid CIFAR run: its images, and the real and fake images a FID
+# pool3 on the card against the port's CPU forward from the same weights, TF32
+# off: within this share of the largest feature
+FID_RTOL_POOL3 = 1e-4
+# Newton-Schulz (30 iterations, float32) against scipy's sqrtm: the traces of
+# sqrt(S1 S2) for two 2048x2048 covariances of 8192 samples each
+FID_RTOL_TRACE = 1e-3
+
+
+@contextlib.contextmanager
+def recording_fid_calls(calls: list):
+    """Each call of the image trainer's FID hook appended to ``calls``: its
+    value, seconds, the CUDA graphs captured before and after it, and whether
+    its Fréchet distance fell back from Newton-Schulz to scipy's sqrtm."""
+    import torch
+
+    from soft_intro_vae_torch.metrics import fid
+    from soft_intro_vae_torch.train import graph
+
+    make, distance = fid.make_training_fid, fid.frechet_distance
+    methods = []
+
+    def recording_distance(*args, **kwargs):
+        methods.append(kwargs.get("method", "newton"))
+        return distance(*args, **kwargs)
+
+    def recording_make(cfg, weights_path=None):
+        fid_fn = make(cfg, weights_path)
+
+        def timed(state, *args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = graph.captures, time.perf_counter()
+            methods.clear()
+            value = fid_fn(state, *args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append({"fid": value, "s": time.perf_counter() - t0,
+                          "captures": (before, graph.captures), "scipy": "scipy" in methods})
+            return value
+
+        return timed
+
+    fid.make_training_fid, fid.frechet_distance = recording_make, recording_distance
+    try:
+        yield
+    finally:
+        fid.make_training_fid, fid.frechet_distance = make, distance
+
+
+def phase_fid(device, card: str, results_dir: str):
+    """The FID network on the card against its CPU forward; its speed with
+    TF32 off (the policy) and on; Newton-Schulz against scipy at 2048x2048; a
+    with_fid CIFAR run at scan_steps 8 (u8norm launches, graph captures
+    around the FID between graph calls, the losses equal to a run without
+    FID); one style FID at LOD 2."""
+    import numpy as np
+    import torch
+    from scipy import linalg
+
+    from soft_intro_vae_torch.metrics import fid
+    from soft_intro_vae_torch.train import graph
+    from soft_intro_vae_torch.train.image import train_soft_intro_vae
+    from soft_intro_vae_torch.train.style import (
+        build_style_training, make_style_dataset, make_style_fid)
+
+    t0 = time.perf_counter()
+    feats = fid.load_fid_network(device=device)  # the fallback: init and calibration on the card
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cpu_net = fid.InceptionV3FID().eval()
+    cpu_net.load_state_dict({k: v.cpu() for k, v in feats.net.state_dict().items()})
+    x = torch.rand((4, 3, 32, 32), generator=torch.Generator().manual_seed(31))
+    with torch.no_grad():
+        want = cpu_net(x)
+    scale = float(want.abs().max())
+    err = float((feats(x.to(device)).cpu() - want).abs().max()) / scale
+    check(err <= FID_RTOL_POOL3, f"pool3 on the card vs the CPU: {err:.3g} of the largest feature")
+    with_tf32 = fid.InceptionFeatures(feats.net, feats.device, allow_tf32=True)
+    err_tf32 = float((with_tf32(x.to(device)).cpu() - want).abs().max()) / scale
+    xb = torch.rand((64, 3, 32, 32), generator=torch.Generator().manual_seed(32)).to(device)
+    ms = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        fn = feats if mode == "off" else with_tf32
+        ms[mode].append(cuda_ms(lambda: fn(xb), iters=5, warmup=2))
+    ms = {k: sum(v) / len(v) for k, v in ms.items()}
+
+    gen = torch.Generator(device=device).manual_seed(33)
+
+    def covariance(spread):
+        a = spread * torch.randn((8192, 2048), generator=gen, device=device, dtype=torch.float64)
+        a = a - a.mean(dim=0)
+        return a.T @ a / (a.shape[0] - 1)
+
+    prod = covariance(1.0) @ covariance(1.3)
+    ns_ms = cuda_ms(lambda: fid.sqrtm_newton_schulz(prod), iters=3, warmup=1)
+    tr_ns = float(torch.trace(fid.sqrtm_newton_schulz(prod)))
+    t0 = time.perf_counter()
+    tr_scipy = float(np.trace(linalg.sqrtm(prod.cpu().numpy()).real))
+    scipy_s = time.perf_counter() - t0
+    tr_rel = abs(tr_ns - tr_scipy) / abs(tr_scipy)
+    check(tr_rel <= FID_RTOL_TRACE, f"Newton-Schulz trace {tr_ns!r} vs scipy {tr_scipy!r}")
+    print(f"fid network: pt_inception topology, random init calibrated on the card in "
+          f"{load_s:.2f} s (no weights file); pool3 of 4 images (32x32 -> 299x299) on the card vs "
+          f"the port's CPU forward: {err:.3g} of the largest feature with TF32 off (tolerance "
+          f"{FID_RTOL_POOL3:g}), {err_tf32:.3g} with TF32 on; batch 64: {ms['off']:.3f} ms "
+          f"({64e3 / ms['off']:.1f} images/s) TF32 off, {ms['on']:.3f} ms ({64e3 / ms['on']:.1f} "
+          f"images/s) TF32 on; Newton-Schulz at 2048x2048 {ns_ms:.3f} ms, trace rel {tr_rel:.3g} "
+          f"of scipy's sqrtm ({scipy_s:.2f} s on the host); on {card}", flush=True)
+
+    spec, ds = image_dataset(FID_IMAGES, seed=11)
+    cfg = image_config(device, results_dir, scan_steps=IMAGE_SCAN, num_epochs=2, num_vae=0,
+                       with_fid=True, fid_num_images=FID_IMAGES)
+    steps = 2 * FID_IMAGES // cfg.batch_size
+    real_batches = -(-FID_IMAGES // 64)
+    calls = []
+    reset_counts()
+    graph_captures = graph.captures
+    t0 = time.perf_counter()
+    with recording_fid_calls(calls):
+        state, summary = train_soft_intro_vae(cfg, ds, spec)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts, captured = read_counts(), captured_counts()
+    expect_name = "fid_selfconsistent" if fid.fid_weights_path() is None else "fid"
+    check(summary["fid_metric"] == expect_name, f"FID logged as {summary['fid_metric']}")
+    check(len(calls) == 2 and all(math.isfinite(c["fid"]) for c in calls),
+          f"FID calls: {calls}")
+    before, after = calls[1]["captures"]
+    check(before == after == graph_captures + 1,
+          f"graphs captured {graph_captures} -> {calls[0]['captures']} -> {calls[1]['captures']}: "
+          "the FID between graph calls must leave the one capture alone")
+    check(summary["steps"] == steps and counts["u8norm"] == steps + real_batches,
+          f"u8norm launched {counts['u8norm']} times: {steps} steps + {real_batches} real FID "
+          "batches expected")
+    check(captured == {"u8norm": 1}, f"captures recorded {captured}")
+    check(math.isfinite(summary["best_fid"]), f"best FID {summary['best_fid']}")
+    images = [2 * FID_IMAGES, FID_IMAGES]  # the first call also takes the real statistics
+    how = {True: "by scipy: Newton-Schulz not finite", False: "by Newton-Schulz"}
+    fid_line = "; ".join(f"epoch {e} {expect_name} {c['fid']:.6g} in {c['s']:.3f} s "
+                         f"({n} images through Inception, {n / c['s']:.1f} a second; the "
+                         f"distance {how[c['scipy']]}), graphs captured {c['captures'][0]} -> "
+                         f"{c['captures'][1]}" for e, c, n in zip((0, 1), calls, images))
+    del state
+
+    # the same run with FID on and off under exact routes: equal losses and weights
+    small = dict(scan_steps=IMAGE_SCAN, num_epochs=2, num_vae=0, fid_num_images=256)
+    spec_s = image_dataset(8)[0]
+    runs = []
+    with exact_routes():
+        for with_fid in (True, False):
+            cfg_s = image_config(device, os.path.join(results_dir, f"exact_{with_fid}"),
+                                 with_fid=with_fid, **small)
+            runs.append(train_soft_intro_vae(cfg_s, image_dataset(512, seed=12)[1], spec_s))
+    (sa, ma), (sb, mb) = runs
+    check(ma["last_metrics"] == mb["last_metrics"],
+          f"with FID {ma['last_metrics']} vs without {mb['last_metrics']}")
+    sd_b = sb.model.state_dict()
+    differ = [k for k, v in sa.model.state_dict().items() if not torch.equal(v, sd_b[k])]
+    check(not differ, f"with FID vs without: {len(differ)} tensors differ ({differ[:4]})")
+    del runs, sa, sb
+    print(f"fid image: with_fid CIFAR-10 run at the recipe's width, scan_steps {IMAGE_SCAN}, "
+          f"{FID_IMAGES} uint8 images, 2 intro epochs ({steps} steps) in {run_s:.2f} s: "
+          f"{fid_line}; best {summary['best_fid']:.6g}; u8norm launches {counts['u8norm']} "
+          f"({steps} steps + {real_batches} real batches of 64); with FID on and off (512 images, "
+          f"256-image FID, TF32 off, cuDNN deterministic): losses and all "
+          f"{len(sd_b)} model tensors bit-equal; on {card}", flush=True)
+
+    scfg = style_config(device, results_dir, ["DATASET.SYNTHETIC", "true",
+                                              "DATASET.SYNTHETIC_N", "64"])
+    scfg = dataclasses.replace(scfg, fid_num_images=64)
+    model, sstate = build_style_training(scfg)
+    fid_fn = make_style_fid(model, scfg)
+    t0 = time.perf_counter()
+    value = fid_fn(sstate, make_style_dataset(scfg), 2)
+    torch.cuda.synchronize()
+    check(math.isfinite(value), f"style FID {value}")
+    print(f"fid style: the EMA generator at ffhq256 width, LOD 2 (16x16): {expect_name} "
+          f"{value:.6g} over 64 real and 64 generated images in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1338,6 +1605,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_bootstrap_image(device, results_dir)
     lap("graph image and bootstrap")
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
+        phase_toy(device, card, results_dir)
+    lap("toy")
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
+        phase_fid(device, card, results_dir)
+    lap("fid")
     print(f"timing (s): {', '.join(laps)}; build to last phase "
           f"{time.perf_counter() - began:.1f}", flush=True)
     chamfer["launches"] = counts_3d["chamfer_nearest"]

@@ -1,18 +1,19 @@
 """Command line of the port (mirrors soft_intro_vae_tpu/cli/main.py).
 
-Ported subcommands: ``image`` and ``bootstrap`` (the reference's
+All five subcommands: ``image`` and ``bootstrap`` (the reference's
 soft_intro_vae/main.py and soft_intro_vae_bootstrap/main.py flags, the
-latter with -o/--freq and gamma_r 1.0 by default), ``threed`` and ``style``;
-``toy`` follows the slices of ROADMAP.md.
+latter with -o/--freq and gamma_r 1.0 by default, -f/--fid scoring the run
+by FID), ``toy`` (soft_intro_vae_2d/main.py), ``threed`` and ``style``.
 
 Devices: the port runs on CUDA unless told otherwise. ``threed`` and
-``style`` take ``--device cuda|cpu``; ``image`` and ``bootstrap`` keep the
-reference's ``-c/--device`` and take ``cpu``, ``cuda``, or a CUDA index N
-(``cuda:N``). Without a GPU only ``cpu`` runs.
+``style`` take ``--device cuda|cpu``; ``image``, ``bootstrap`` and ``toy``
+keep the reference's ``-c/--device`` and take ``cpu``, ``cuda``, or a CUDA
+index N (``cuda:N``). Without a GPU only ``cpu`` runs.
 
 Usage:
     python -m soft_intro_vae_torch.cli.main image -d cifar10 -n 250 -z 128 -b 32 -e 256
     python -m soft_intro_vae_torch.cli.main bootstrap -d cifar10 -o 1 [-c 0]
+    python -m soft_intro_vae_torch.cli.main toy -d 8Gaussians [-c cpu]
     python -m soft_intro_vae_torch.cli.main threed -c configs/soft_intro_vae_hp.json
     python -m soft_intro_vae_torch.cli.main style -c configs/ffhq256.yaml [KEY VALUE ...]
 """
@@ -55,7 +56,9 @@ def _image_flags(p: argparse.ArgumentParser, gamma_r_default: float) -> None:
                    help="a port checkpoint or a reference .pth")
     p.add_argument("-c", "--device", type=device_arg, default="cuda",
                    help="cuda (default; fails without a GPU), cuda:N, a CUDA index N, or cpu")
-    p.add_argument("-f", "--fid", action="store_true", help="not ported yet (ROADMAP.md)")
+    p.add_argument("-f", "--fid", action="store_true",
+                   help="score the run by FID (metrics/fid.py; without the pt_inception "
+                        "weights on disk, logged as fid_selfconsistent)")
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--result_dir", type=str, default=None)
     p.add_argument("--num_devices", type=int, default=None, help="not ported yet beyond 1")
@@ -95,6 +98,20 @@ def _run_image(args, bootstrap: bool):
     train_soft_intro_vae(cfg)
 
 
+def _run_toy(args):
+    from soft_intro_vae_torch.train.toy import ToyConfig, train_soft_intro_vae_toy
+
+    scale = 1.0 if args.dataset == "8Gaussians" else 2.0
+    cfg = ToyConfig(
+        dataset=args.dataset, z_dim=args.z_dim, lr_e=args.lr, lr_d=args.lr,
+        batch_size=args.batch_size, n_iter=args.num_iter, num_vae=args.num_vae,
+        beta_kl=args.beta_kl, beta_rec=args.beta_rec, beta_neg=args.beta_neg,
+        gamma_r=args.gamma_r, seed=args.seed, scale=scale, save_interval=5000, test_iter=5000,
+        pretrained=None if args.pretrained == "None" else args.pretrained, device=args.device,
+    )
+    train_soft_intro_vae_toy(cfg)
+
+
 def _run_threed(args):
     from soft_intro_vae_torch.train.threed import ThreeDConfig, train_soft_intro_vae_3d
 
@@ -119,6 +136,23 @@ def build_parser() -> argparse.ArgumentParser:
     _image_flags(p_boot, gamma_r_default=1.0)
     p_boot.add_argument("-o", "--freq", type=int, default=1,
                         help="epochs between decoder->target weight copies")
+    p_toy = sub.add_parser("toy", help="2D toy variant")
+    p_toy.add_argument("-d", "--dataset", type=str, required=True,
+                       help="['8Gaussians', '2spirals', 'checkerboard', 'rings']")
+    p_toy.add_argument("-n", "--num_iter", type=int, default=30000)
+    p_toy.add_argument("-z", "--z_dim", type=int, default=2)
+    p_toy.add_argument("-l", "--lr", type=float, default=2e-4)
+    p_toy.add_argument("-b", "--batch_size", type=int, default=512)
+    p_toy.add_argument("-v", "--num_vae", type=int, default=2000)
+    p_toy.add_argument("-r", "--beta_rec", type=float, default=0.2)
+    p_toy.add_argument("-k", "--beta_kl", type=float, default=0.3)
+    p_toy.add_argument("-e", "--beta_neg", type=float, default=0.9)
+    p_toy.add_argument("-g", "--gamma_r", type=float, default=1e-8)
+    p_toy.add_argument("-s", "--seed", type=int, default=-1)
+    p_toy.add_argument("-p", "--pretrained", type=str, default="None",
+                       help="a port checkpoint or a reference .pth")
+    p_toy.add_argument("-c", "--device", type=device_arg, default="cuda",
+                       help="cuda (default; fails without a GPU), cuda:N, a CUDA index N, or cpu")
     p_3d = sub.add_parser("threed", help="3D point-cloud variant")
     p_3d.add_argument("-c", "--config", type=str, default=None, help="JSON config path")
     p_3d.add_argument("--device", type=str, default="cuda",
@@ -140,6 +174,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.command in ("image", "bootstrap"):
         _run_image(args, bootstrap=args.command == "bootstrap")
+    elif args.command == "toy":
+        _run_toy(args)
     elif args.command == "threed":
         _run_threed(args)
     elif args.command == "style":

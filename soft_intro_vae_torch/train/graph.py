@@ -53,6 +53,9 @@ WARMUP_STEPS = 3
 # wrapper count - captured + replayed.
 captured: collections.Counter = collections.Counter()
 replayed: collections.Counter = collections.Counter()
+# CUDA graphs captured so far, every step's together: work between calls (an
+# FID evaluation) must leave the graphs as they are and force none anew
+captures = 0
 
 
 def wrapper_counts() -> Dict[str, int]:
@@ -131,6 +134,8 @@ class GraphedStep:
             _, m = self.step(state, x_static)
             row_static = _stack(m, names)
         state.step = step  # the captured step runs on replay
+        global captures
+        captures += 1
         per_replay = collections.Counter(
             {k: v - before[k] for k, v in wrapper_counts().items() if v != before[k]})
         captured.update(per_replay)

@@ -17,6 +17,15 @@ normalized whatever ``host_storage`` says (the JAX trainer keys the table on
 when it says "float32"). Step metrics stay on the device and are fetched
 once per epoch and every ``nan_check_iter`` steps.
 
+``with_fid`` scores the decoder by FID (metrics/fid.py) at the top of epoch
+0, of every 20th epoch from 100, and of the last, as the JAX trainer does
+(train/image.py:274-310), over ``min(fid_num_images, len(dataset))`` real
+images and as many samples in batches of up to 64, and keeps the
+best-scoring state as a tagged checkpoint. Without the pt_inception weights
+on disk the metric is ``fid_selfconsistent``. Between K-step calls the FID
+reads the decoder in eval mode and draws its noise from a generator of its
+own, so the captured graph and its generator are left as they were.
+
 With ``scan_steps`` K > 1, K host batches go to the device as one (K, B, H,
 W, C) transfer, the last chunk of an epoch shorter where the batches run
 out, and one K-step call takes each chunk: a CUDA graph of one step replayed
@@ -103,8 +112,6 @@ class ImageConfig:
 
 
 def _check_supported(cfg: ImageConfig) -> None:
-    if cfg.with_fid:
-        raise NotImplementedError("FID is not ported yet (ROADMAP.md Queue 1, item 10)")
     if cfg.num_devices not in (None, 1) or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("data parallelism and multi-process runs are not ported yet "
                                   "(ROADMAP.md Queue 1, item 11)")
@@ -222,10 +229,39 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
     aug_seed = max(cfg.seed, 0) + 1  # per-epoch reseeded: a resumed run replays its draws
     put_fn = device_put_fn(state.device)
 
-    summary = dict(best_fid=None, epochs_run=0, fid_metric="fid", steps=0, last_metrics={})
+    fid_fn = None
+    fid_name = "fid"
+    if cfg.with_fid:
+        from soft_intro_vae_torch.metrics.fid import fid_weights_path, make_training_fid
+
+        fid_fn = make_training_fid(cfg)
+        if fid_weights_path() is None:
+            # random-init Inception: self-consistent ordering, NOT comparable
+            # to published FID (the reference loads the pt_inception weights,
+            # metrics/inception.py:17,184-206)
+            fid_name = "fid_selfconsistent"
+            print("!" * 72)
+            print("! WARNING: pt_inception weights not found — FID uses a "
+                  "RANDOM-INIT Inception.\n! The metric is logged as "
+                  "'fid_selfconsistent' and is NOT comparable to published "
+                  "FID.\n! Provide pt_inception-2015-12-05-6726825d.pth (see "
+                  "metrics/fid.py) for real FID.")
+            print("!" * 72)
+
+    summary = dict(best_fid=None, epochs_run=0, fid_metric=fid_name, steps=0, last_metrics={})
     cur_iter = 0
     start = time.time()
     for epoch in range(cfg.start_epoch, cfg.num_epochs):
+        if fid_fn is not None and (epoch == 0 or (epoch >= 100 and epoch % 20 == 0)
+                                   or epoch == cfg.num_epochs - 1):
+            n = min(cfg.fid_num_images, len(dataset))
+            fid = fid_fn(state, dataset, num_images=n, batch_size=min(64, n))
+            if cfg.verbose:
+                print(f"epoch {epoch} {fid_name}: {fid:.3f}")
+            tracker.update({fid_name: fid})
+            if summary["best_fid"] is None or fid < summary["best_fid"]:
+                summary["best_fid"] = fid
+                ckpt.save(state, epoch, cur_iter, tag=f"_{fid_name}_{fid:.3f}")
         if epoch % cfg.save_interval == 0 and epoch > 0:
             ckpt.save(state, epoch, cur_iter)
         step_fn = vanilla_step if epoch < cfg.num_vae else intro_step

@@ -13,9 +13,13 @@ machine has no PyYAML). Images are fed NCHW: float batches are normalised on
 the host (x / 127.5 - 1, as the JAX trainer does for float feeds and for
 every transition batch); uint8 batches go to the device as bytes and are
 normalised there by a 256-entry table lookup, exact for every byte.
-``save_figures`` saves an EMA sample grid at the report cadence. Not ported
-yet, and raising ``NotImplementedError`` naming their ROADMAP item: FID,
-streaming TFRecords, data parallelism and activation checkpointing.
+``save_figures`` saves an EMA sample grid at the report cadence. ``with_fid``
+scores the EMA generator by FID (metrics/fid.py) every ``fid_every`` epochs
+once the last LOD is reached, against the dataset at the LOD's resolution,
+and keeps the best-scoring state as a tagged checkpoint (the JAX trainer's
+train/style.py:378-430). Not ported yet, and raising
+``NotImplementedError`` naming their ROADMAP item: streaming TFRecords, data
+parallelism and activation checkpointing.
 """
 
 from __future__ import annotations
@@ -88,6 +92,8 @@ class StyleConfig:
     use_synthetic: bool = False
     synthetic_n: int = 512
     nan_check_iter: int = 200  # sub-epoch NaN-abort cadence; 0 disables
+    fid_every: int = 10
+    fid_num_images: int = 50000  # reference protocol (train_style_soft_intro_vae.py:292)
     with_fid: bool = False
     save_figures: bool = False
     verbose: bool = True
@@ -308,6 +314,54 @@ def _save_style_samples(model: StyleModel, cfg: StyleConfig, state: StyleTrainSt
     return save_image_grid(img, path, nrow=4)
 
 
+def make_style_fid(model: StyleModel, cfg: StyleConfig):
+    """FID of the EMA generator (reference :287-299):
+    ``fid_fn(state, dataset, lod, batch_size=32)``. The real statistics are
+    the dataset at the LOD's resolution, cached per resolution; the fakes are
+    EMA samples without truncation, [-1, 1] -> [0, 1], their latents and
+    noise from a generator of their own seeded from the run's seed, so the
+    training draws stay as they are."""
+    from soft_intro_vae_torch.metrics.fid import (
+        compute_statistics_streaming, frechet_distance, load_fid_network)
+
+    apply_fn = load_fid_network(device=cfg.device)
+    real_cache: Dict[int, Tuple] = {}
+
+    @torch.no_grad()
+    def fid_fn(state: StyleTrainState, dataset: MultiResImages, lod: int,
+               batch_size: int = 32) -> float:
+        res = model.layer_to_resolution[lod]
+        if res not in real_cache:
+            def real_iter():
+                seen = 0
+                for b in dataset.epoch(res, batch_size):
+                    if seen >= cfg.fid_num_images:
+                        break
+                    seen += b.shape[0]
+                    # uint8 batches go as they are: the statistics normalize them
+                    yield b if b.dtype == np.uint8 else b / 255.0
+
+            real_cache[res] = compute_statistics_streaming(apply_fn, real_iter(), state.device)
+        mu1, s1 = real_cache[res]
+        gen = torch.Generator(device=state.device)
+        gen.manual_seed(state.generator.initial_seed() + 9000)
+
+        def fake_iter():
+            made = 0
+            while made < cfg.fid_num_images:
+                z = torch.randn((batch_size, cfg.latent_space_size), generator=gen,
+                                device=state.device)
+                rec = model.generate(state.ema, gen, lod, None, z, mixing=False,
+                                     truncation=False, update_avg=False)
+                made += batch_size
+                yield (rec.float() * 0.5 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+
+        mu2, s2 = compute_statistics_streaming(apply_fn, fake_iter(), state.device)
+        return frechet_distance(mu1, s1, mu2, s2, device=state.device)
+
+    return fid_fn
+
+
 def _epoch_means(device_metrics) -> dict:
     """One device->host fetch for a whole epoch of step metrics."""
     keys = list(device_metrics[0])
@@ -317,8 +371,6 @@ def _epoch_means(device_metrics) -> dict:
 
 def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImages] = None):
     """Run the style recipe; returns (state, summary)."""
-    if cfg.with_fid:
-        raise NotImplementedError("FID needs the Inception port (ROADMAP.md Queue 1, item 10)")
     resolve_device(cfg.device)  # fail before loading the data, not after
     if dataset is None:
         dataset = make_style_dataset(cfg)
@@ -331,7 +383,7 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
         report_freq=cfg.report_freq, snapshot_freq=cfg.snapshot_freq)
     ckpt = Checkpointer(os.path.join(cfg.output_dir, "training_artifacts"), prefix=cfg.name + "_")
     tracker = LossTracker(cfg.output_dir)
-    summary = dict(epochs_run=0, lods_seen=[], blended_steps=0, steps=0)
+    summary = dict(best_fid=None, epochs_run=0, lods_seen=[], blended_steps=0, steps=0)
 
     # resume (reference :233-234, :268,277): end-of-epoch anchors resume at the
     # next epoch, mid-epoch snapshots restart the interrupted epoch
@@ -347,6 +399,7 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
             lod2batch.set_epoch(max(0, start_epoch - 1))
             if aux.get("tracker"):
                 tracker.load_state_dict(aux["tracker"])
+            summary["best_fid"] = aux.get("best_fid")
             summary["lods_seen"] = list(aux.get("lods_seen", []))
             if cfg.verbose:
                 print(f"resumed from epoch {saved_epoch} (lod {lod2batch.lod}); "
@@ -364,8 +417,21 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
         return step_cache[key]
 
     def aux(lod, completed):
-        return {"tracker": tracker.state_dict(), "lods_seen": summary["lods_seen"], "lod": lod,
-                "epoch_completed": completed}
+        return {"tracker": tracker.state_dict(), "best_fid": summary["best_fid"],
+                "lods_seen": summary["lods_seen"], "lod": lod, "epoch_completed": completed}
+
+    fid_fn = None
+    fid_name = "fid"
+    if cfg.with_fid:
+        from soft_intro_vae_torch.metrics.fid import fid_weights_path
+
+        fid_fn = make_style_fid(model, cfg)
+        if fid_weights_path() is None:
+            fid_name = "fid_selfconsistent"
+            print("! WARNING: pt_inception weights not found — style FID uses a "
+                  "RANDOM-INIT Inception;\n! logged as 'fid_selfconsistent', NOT "
+                  "comparable to published FID.")
+    summary["fid_metric"] = fid_name
 
     feed = _Feed(state.device)
     start = time.time()
@@ -381,6 +447,18 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
         res = model.layer_to_resolution[lod]
         state.set_lr(_lr_for(cfg, epoch, lod))
         state.ema_beta = 0.5 ** (batch / 10000.0)
+        if (fid_fn is not None and epoch > cfg.epochs_per_lod * (cfg.layer_count - 1)
+                and epoch % cfg.fid_every == 0):
+            fid = fid_fn(state, dataset, lod, batch_size=min(32, cfg.fid_num_images))
+            if cfg.verbose:
+                print(f"epoch {epoch} {fid_name}: {fid:.2f}")
+            tracker.update({fid_name: fid})
+            if summary["best_fid"] is None or fid < summary["best_fid"]:
+                summary["best_fid"] = fid
+                # FID runs at the top of the epoch, before it trains: a resume
+                # from this checkpoint restarts the epoch
+                ckpt.save(state, epoch, state.step, tag=f"_lod{lod}_{fid_name}_{fid:.2f}",
+                          aux=aux(lod, False))
         vanilla = epoch < cfg.num_vae
         device_metrics = []
         it = 0

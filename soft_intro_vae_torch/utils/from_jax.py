@@ -1,10 +1,12 @@
 """Weights carried across from the JAX package's parameter trees.
 
 The inverses of ``convert_pointnet_encoder``/``convert_pointnet_decoder``
-(soft_intro_vae_tpu/utils/torch_compat.py:143-192) and of
-``convert_style_encoder``/``convert_style_generator``/``convert_mapping``
-(:264-321). They take the trees as plain numpy arrays (nested dicts), so
-nothing here imports JAX.
+(soft_intro_vae_tpu/utils/torch_compat.py:143-192), of ``convert_mlp``
+(:210-217), of ``convert_style_encoder``/``convert_style_generator``/
+``convert_mapping`` (:264-321) and of the FID Inception's
+``params_from_torch_state_dict`` (soft_intro_vae_tpu/metrics/fid.py:247).
+They take the trees as plain numpy arrays (nested dicts), so nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -63,8 +65,41 @@ def pointnet_state_dict_from_jax(params_e: Mapping, stats_e: Mapping,
     return sd
 
 
+def mlp_state_dict_from_jax(params: Mapping, n_layers: int,
+                            prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX EncoderMLP/DecoderMLP tree -> the port's net's state_dict, in the
+    reference's names under ``prefix`` (e.g. "encoder."); the inverse of
+    ``convert_mlp`` (soft_intro_vae_tpu/utils/torch_compat.py:210-217)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, prefix + "main.input", params["input"])
+    for i in range(1, n_layers + 1):
+        _linear(sd, prefix + f"main.hidden_{i}", params[f"hidden_{i}"])
+    _linear(sd, prefix + "main.output", params["output"])
+    return sd
+
+
 def _conv_oihw(kernel) -> torch.Tensor:
     return _t(np.asarray(kernel).transpose(3, 2, 0, 1))  # HWIO -> (out, in, kh, kw)
+
+
+def inception_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                                  prefix: str = "") -> Dict[str, torch.Tensor]:
+    """JAX ``InceptionV3FID`` variables (or one of its blocks') -> the port's
+    state_dict under pytorch-fid's names; the inverse of
+    ``params_from_torch_state_dict`` (soft_intro_vae_tpu/metrics/fid.py:247-288).
+
+    Each ``BasicConv2d`` node ({"conv": {"kernel"}, "bn": {"scale", "bias"}}
+    with {"bn": {"mean", "var"}} among the stats) becomes ``.conv.weight``
+    (HWIO -> OIHW) and ``.bn.weight/bias/running_mean/running_var``.
+    """
+    sd: Dict[str, torch.Tensor] = {}
+    if "conv" in params and "bn" in params:
+        sd[prefix + "conv.weight"] = _conv_oihw(params["conv"]["kernel"])
+        _bn(sd, prefix + "bn", params["bn"], batch_stats["bn"])
+        return sd
+    for name, node in params.items():
+        sd.update(inception_state_dict_from_jax(node, batch_stats[name], f"{prefix}{name}."))
+    return sd
 
 
 def _bn(sd: Dict[str, torch.Tensor], name: str, params: Mapping, stats: Mapping) -> None:

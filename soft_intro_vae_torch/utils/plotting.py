@@ -1,18 +1,19 @@
-"""Image grids and point-cloud panels (port of the image and 3D parts of
-soft_intro_vae_tpu/utils/plotting.py).
+"""Image grids, 2D scatter and density plots, and point-cloud panels (port
+of soft_intro_vae_tpu/utils/plotting.py).
 
 The reference saves [real | reconstruction | sample] grids with torchvision's
-``vutils.save_image`` (train_soft_intro_vae.py:539-540,641-646) and the 3D
-trainer's real / reconstruction / sample panel (train_soft_intro_vae_3d.py:
-396-426). matplotlib is imported lazily with the Agg backend; each function
-is a no-op returning None where matplotlib is missing, as on the card's
-machine.
+``vutils.save_image`` (train_soft_intro_vae.py:539-540,641-646), the 2D
+trainer's sample scatter and VAE density (train_soft_intro_vae_2d.py:
+232-258,662-699) and the 3D trainer's real / reconstruction / sample panel
+(train_soft_intro_vae_3d.py:396-426). matplotlib is imported lazily with
+the Agg backend; each function is a no-op returning None where matplotlib is
+missing, as on the card's machine.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -53,6 +54,43 @@ def save_image_grid(images: np.ndarray, path: str, nrow: int = 8, value_range=(0
         imgs = np.repeat(imgs, 3, axis=-1)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     plt.imsave(path, make_grid(imgs, nrow=nrow))
+    return path
+
+
+def save_scatter_2d(points: np.ndarray, path: str, lim: float = 4.0, color: str = "g",
+                    title: Optional[str] = None):
+    """A 2D sample scatter (train_soft_intro_vae_2d.py:662-676); the path, or
+    None without matplotlib."""
+    plt = _plt()
+    if plt is None:
+        return None
+    fig, ax = plt.subplots(1, 1, figsize=(6, 6))
+    ax.scatter(points[:, 0], points[:, 1], s=8, c=color)
+    ax.set_xlim((-lim, lim))
+    ax.set_ylim((-lim, lim))
+    ax.set_axis_off()
+    if title:
+        ax.set_title(title)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    fig.savefig(path, bbox_inches="tight")
+    plt.close(fig)
+    return path
+
+
+def save_density_2d(density: np.ndarray, n_pts: int, path: str):
+    """The VAE density heatmap of an (n_pts^2,) grid (plot_vae_density,
+    train_soft_intro_vae_2d.py:232-258); the path, or None without matplotlib."""
+    plt = _plt()
+    if plt is None:
+        return None
+    fig, ax = plt.subplots(1, 1, figsize=(6, 6))
+    ax.pcolormesh(density.reshape(n_pts, n_pts), cmap=plt.cm.jet)
+    ax.set_facecolor(plt.cm.jet(0.0))
+    ax.set_axis_off()
+    ax.invert_yaxis()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    fig.savefig(path, bbox_inches="tight")
+    plt.close(fig)
     return path
 
 

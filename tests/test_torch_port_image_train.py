@@ -187,7 +187,7 @@ def test_sample_grids_and_the_no_matplotlib_rule(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("with_fid", True, "item 10"), ("num_devices", 2, "item 11"), ("remat", True, "item 13"),
+    ("num_devices", 2, "item 11"), ("remat", True, "item 13"),
 ])
 def test_options_of_later_slices_raise(tmp_path, field, value, item):
     cfg = _cfg(tmp_path, **{field: value})

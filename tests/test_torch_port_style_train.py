@@ -151,9 +151,9 @@ def test_entry_points_default_to_cuda(tmp_path):
         train_style_soft_intro_vae(dataclasses.replace(_cfg(tmp_path), device="cuda"))
 
 
-@pytest.mark.parametrize("change", [dict(with_fid=True), dict(num_devices=2), dict(remat=True),
+@pytest.mark.parametrize("change", [dict(num_devices=2), dict(remat=True),
                                     dict(use_synthetic=False, dataset_path="r%02d.tfrecords")],
-                         ids=["fid", "data-parallel", "remat", "tfrecords"])
+                         ids=["data-parallel", "remat", "tfrecords"])
 def test_unported_options_name_their_roadmap_item(tmp_path, change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_style_soft_intro_vae(_cfg(tmp_path, **change))

@@ -211,6 +211,7 @@ def _port_sources():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "torch_profile_3d.py")
+    yield os.path.join(REPO, "tools", "torch_profile_toy.py")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
