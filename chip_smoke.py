@@ -37,18 +37,24 @@ Phases, each printing one line; any failure exits non-zero:
   7. routes style: one f32 intro step through the kernels against one
               through the plain version, from the same weights and draws;
   8. transition style: LOD 0 -> 1 through a blended epoch;
-  9. kernels u8norm: the uint8 NHWC -> f32 NCHW normalize bit-equal to its
+  9. kernels u8norm: the uint8 NHWC -> f32 normalize (NHWC memory, returned
+              as (B, C, H, W) with channels-last strides) bit-equal to its
               plain version and to numpy for all 256 byte values and at the
-              image recipes' batch shapes and odd ones, launch to launch; its
-              device time against the bound; the naive PyTorch chain's time
-              and how many byte values it gets wrong on the card;
+              image recipes' batch shapes, odd ones and input slices that
+              start off a 16-byte boundary, launch to launch, in the plain
+              version's layout; its device time against the bound and
+              against the library chain ``x.float().div(255)`` (no faster
+              fails), and how many byte values that chain gets wrong;
  10. train image: ``train_soft_intro_vae`` at the CIFAR-10 recipe's full
               width (channels 64/128/256, z 128, batch 32, f32) and bench.py's
               ``scan_steps`` 8 on a uint8 dataset, one vanilla and one intro
               epoch of 8 graph calls of 8 steps and a trailing call of one,
               u8norm launches (eager warm-up steps plus graph replays) held to
-              the steps taken; ms per intro step after warm-up at scan_steps
-              8 and 1;
+              the steps taken, every 4-D parameter channels-last; ms per intro
+              step after warm-up at scan_steps 8 and 1, and cuDNN's layout
+              transposes (``nchwToNhwc``/``nhwcToNchw`` kernels) per graphed
+              step from a torch.profiler pass over two calls, held to 0 (the
+              trace held to one u8norm launch a step);
  11. routes image: one intro step through the kernel and through the plain
               normalize, from the same weights, draws and uint8 batch;
  11b. graph image: 16 intro steps as two graph calls of 8 against 16 eager
@@ -1032,11 +1038,31 @@ U8_SHAPES = ((32, 32, 32, 3), (32, 256, 256, 3), (5, 28, 28, 1), (3, 7, 5, 1), (
 IMAGE_RTOL_LOSS = 1e-5
 
 
+def u8_cases(gen, device):
+    """(name, uint8 NHWC input) pairs: U8_SHAPES, then slices whose first byte
+    lies off a 16-byte boundary: the second batch of an odd-sized K-batch
+    (105 bytes a batch) and CIFAR batches 1 and 4 bytes into a buffer (the
+    output's vectors then land off and on a 16-byte boundary)."""
+    import torch
+
+    def draw(shape):
+        return torch.randint(0, 256, shape, generator=gen, device=device, dtype=torch.uint8)
+
+    cases = [(str(shape), draw(shape)) for shape in U8_SHAPES]
+    cases.append(("slice 1 of (2, 3, 7, 5, 1)", draw((2, 3, 7, 5, 1))[1]))
+    n = math.prod(U8_SHAPES[0])
+    for off in (1, 4):
+        cases.append((f"{U8_SHAPES[0]} at byte {off}", draw((n + 16,))[off:off + n]
+                      .view(U8_SHAPES[0])))
+    return cases
+
+
 def phase_u8norm(device, peaks):
     """u8norm bit-equal to its plain version and to numpy for every byte value
-    and at U8_SHAPES, two launches bit-equal; device times against the bound;
-    the naive chain ``x.permute(0, 3, 1, 2).float().div(255)``: its time and
-    the byte values it gets wrong on the card."""
+    and at every u8_cases input, in the plain version's channels-last layout,
+    two launches bit-equal; device times against the bound and against the
+    library chain ``x.float().div(255)`` (same NHWC order), which must not be
+    faster, and the byte values that chain gets wrong on the card."""
     import numpy as np
     import torch
 
@@ -1047,7 +1073,7 @@ def phase_u8norm(device, peaks):
     every = torch.arange(256, dtype=torch.uint8, device=device).reshape(1, 16, 16, 1)
     got = u8norm_cuda.u8_to_unit_nchw_cuda(every)
     plain = u8norm.u8_to_unit_nchw_plain(every)
-    naive = every.permute(0, 3, 1, 2).float().div(255)
+    naive = every.float().div(255)
     torch.cuda.synchronize()
     bits = got.cpu().numpy().ravel().view(np.uint32)
     check(np.array_equal(bits, host.view(np.uint32)), "u8norm differs from numpy on the 256 bytes")
@@ -1057,30 +1083,38 @@ def phase_u8norm(device, peaks):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
-    batches = {}
-    for shape in U8_SHAPES:
-        x = torch.randint(0, 256, shape, generator=gen, device=device, dtype=torch.uint8)
+    batches, plans = {}, []
+    for name, x in u8_cases(gen, device):
         k1, k2 = u8norm_cuda.u8_to_unit_nchw_cuda(x), u8norm_cuda.u8_to_unit_nchw_cuda(x)
         p = u8norm.u8_to_unit_nchw_plain(x)
         torch.cuda.synchronize()
-        check(k1.shape == p.shape, f"u8norm shape {tuple(k1.shape)} at {shape}")
+        check(k1.shape == p.shape and k1.stride() == p.stride()
+              and k1.is_contiguous(memory_format=torch.channels_last),
+              f"u8norm layout at {name}: shape {tuple(k1.shape)}, strides {k1.stride()}, plain "
+              f"{p.stride()}")
         check(torch.equal(k1.view(torch.int32), p.view(torch.int32)),
-              f"u8norm differs from its plain version at {shape}: "
+              f"u8norm differs from its plain version at {name}: "
               f"{int((k1 != p).sum())} of {p.numel()}")
         check(torch.equal(k1.view(torch.int32), k2.view(torch.int32)),
-              f"u8norm: two launches differ at {shape}")
-        batches[shape] = x
+              f"u8norm: two launches differ at {name}")
+        batches[name] = x
+        plan = u8norm_cuda.plan(x.numel(), x.data_ptr() % u8norm_cuda.VEC)
+        plans.append(f"{name}: head {plan.head}, {plan.vectors} vectors, tail {plan.tail}, "
+                     f"grid {plan.grid}")
 
     times = {}
     for shape in U8_SHAPES[:2]:
-        x = batches[shape]
+        x = batches[str(shape)]
         t = {"plain": [device_ms(lambda: u8norm.u8_to_unit_nchw_plain(x))]}
         t["kernel"] = [device_ms(lambda: u8norm_cuda.u8_to_unit_nchw_cuda(x)) for _ in range(2)]
         t["plain"].append(device_ms(lambda: u8norm.u8_to_unit_nchw_plain(x)))
-        t["naive"] = [device_ms(lambda: x.permute(0, 3, 1, 2).float().div(255))]
+        t["naive"] = [device_ms(lambda: x.float().div(255)) for _ in range(2)]
         t["calls"] = [cuda_ms(lambda: u8norm_cuda.u8_to_unit_nchw_cuda(x))]
         times[shape] = {k: sum(v) / len(v) for k, v in t.items()} | {
             "runs": t, "bound": 5 * x.numel() / peaks[1] * 1e3}
+        check(times[shape]["kernel"] <= times[shape]["naive"],
+              f"u8norm at {shape}: kernel {t['kernel']} ms, slower than the chain "
+              f"x.float().div(255), {t['naive']} ms")
     recipe = times[U8_SHAPES[0]]
     record = {
         "name": "u8norm",
@@ -1104,14 +1138,15 @@ def phase_u8norm(device, peaks):
         r = t["runs"]
         parts.append(f"{shape}: kernel {r['kernel'][0]:.4f}/{r['kernel'][1]:.4f} ms (calls back "
                      f"to back, host time included: {t['calls']:.4f} ms), plain "
-                     f"{r['plain'][0]:.4f}/{r['plain'][1]:.4f} ms, naive chain {t['naive']:.4f} "
-                     f"ms, bound {t['bound']:.5f} ms")
+                     f"{r['plain'][0]:.4f}/{r['plain'][1]:.4f} ms, chain x.float().div(255) "
+                     f"{r['naive'][0]:.4f}/{r['naive'][1]:.4f} ms, bound {t['bound']:.5f} ms "
+                     f"(kernel at {t['bound'] / t['kernel']:.1%} of it)")
     print(f"kernels: u8norm bit-equal to numpy x.astype(f32)/f32(255) and to its plain version "
-          f"for all 256 byte values, and to the plain version and launch to launch at "
-          f"{list(U8_SHAPES)}; the naive chain x.permute(0,3,1,2).float().div(255) gets "
-          f"{naive_wrong} of 256 byte values wrong on this card; device times (calls queued "
-          f"behind a sleep kernel; bound: 5 bytes an element at {peaks[1] / 1e12:.2f} TB/s): "
-          + "; ".join(parts), flush=True)
+          f"for all 256 byte values, and to the plain version (channels-last strides, the "
+          f"plain version's) and launch to launch at {len(batches)} inputs; launch plans: "
+          + "; ".join(plans) + f"; the chain x.float().div(255) gets {naive_wrong} of 256 byte "
+          f"values wrong on this card; device times (calls queued behind a sleep kernel; bound: "
+          f"5 bytes an element at {peaks[1] / 1e12:.2f} TB/s): " + "; ".join(parts), flush=True)
     return record
 
 
@@ -1137,11 +1172,37 @@ def image_dataset(n: int = IMAGE_N, seed: int = 3):
     return spec, ArrayDataset(images, seed=seed)
 
 
+def layout_transposes(prof, steps: int) -> dict:
+    """cuDNN's layout conversions in a torch.profiler trace, per step: kernel
+    name -> (launches, ms). Fails unless the trace holds the replays' own
+    kernels, one u8norm launch a step, so an empty trace cannot read as no
+    transposes."""
+    import torch
+
+    from tools.torch_profile_image import TRANSPOSES, device_us
+
+    out, u8 = {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        if "u8norm_kernel" in evt.key:
+            u8 += evt.count
+        if any(t in evt.key.lower() for t in TRANSPOSES):
+            launches, ms = out.get(evt.key, (0.0, 0.0))
+            out[evt.key] = (launches + evt.count / steps, ms + device_us(evt) / 1e3 / steps)
+    check(u8 == steps, f"the profiled replays show {u8} u8norm launches for {steps} steps: the "
+          f"trace did not catch the graphs' kernels")
+    return out
+
+
 def image_ms_step(cfg, spec, ds, device, scan: int):
     """ms per intro step after warm-up at ``scan_steps`` = ``scan``, resident
-    uint8 batches (a chunk of ``scan`` at scan > 1): (median, windows), each
-    window 16 steps."""
+    uint8 batches (a chunk of ``scan`` at scan > 1): (median, windows,
+    layout transposes a step), each window 16 steps; at scan > 1 the
+    transposes come from a torch.profiler pass over two calls of graph
+    replays (``layout_transposes``), else None."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from soft_intro_vae_torch.train.image import build_image_training
 
@@ -1164,9 +1225,26 @@ def image_ms_step(cfg, spec, ds, device, scan: int):
         windows.append((time.perf_counter() - t0) * 1e3 / (calls * scan))
     check(all(bool(torch.isfinite(v).all()) for v in m.values()),
           f"non-finite loss in the timed steps at scan_steps {scan}")
+    transposes = None
+    if scan > 1:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(2):
+                state, m = intro(state, inputs[i % 2])
+            torch.cuda.synchronize()
+        transposes = layout_transposes(prof, 2 * scan)
     del state, intro
     torch.cuda.empty_cache()
-    return sorted(windows)[len(windows) // 2], windows
+    return sorted(windows)[len(windows) // 2], windows, transposes
+
+
+def check_channels_last(model) -> None:
+    """Every 4-D parameter of the image nets in the channels-last layout."""
+    import torch
+
+    for k, p in model.named_parameters():
+        if p.dim() == 4:
+            check(p.is_contiguous(memory_format=torch.channels_last) and p.stride(1) == 1,
+                  f"image net parameter {k} is not channels-last: strides {p.stride()}")
 
 
 def phase_train_image(device, card: str, results_dir: str):
@@ -1200,19 +1278,27 @@ def phase_train_image(device, card: str, results_dir: str):
     saved = os.path.join(results_dir, "saves", "cifar10_soft_intro_betas_1.0_256.0_1.0_"
                          f"model_epoch_1_iter_{steps}.ckpt")
     check(os.path.exists(saved), f"no final checkpoint at {saved}")
+    check_channels_last(state.model)
     del state
 
     ms = {scan: image_ms_step(cfg, spec, ds, device, scan) for scan in (IMAGE_SCAN, 1)}
     timing = "; ".join(
         f"scan_steps {scan}: {m:.3f} ms/step (median of {'/'.join(f'{w:.3f}' for w in ws)}), "
-        f"{cfg.batch_size * 1e3 / m:.1f} images/s" for scan, (m, ws) in ms.items())
+        f"{cfg.batch_size * 1e3 / m:.1f} images/s" for scan, (m, ws, _) in ms.items())
+    transposes = ms[IMAGE_SCAN][2]
+    check(not transposes, f"a graphed image step launches cuDNN layout transposes: {transposes}")
+    layout = (f"{sum(c for c, _ in transposes.values()):.1f} launches, "
+              f"{sum(t for _, t in transposes.values()):.3f} ms" + "".join(
+                  f"; {c:.1f} x {name[:60]} ({t:.3f} ms)" for name, (c, t) in transposes.items()))
     print(f"train image: CIFAR-10 recipe width (channels 64/128/256, z 128, batch 32, f32), "
           f"scan_steps {IMAGE_SCAN}, on {IMAGE_N} uint8 images: {steps // 2} vanilla + "
           f"{steps // 2} intro steps in {run_s:.2f} s (first call, warm-up and capture "
           f"included); loss_e {last['loss_e']:.6g}, loss_d {last['loss_d']:.6g}, rec "
           f"{last['rec']:.6g}; u8norm launches {counts['u8norm']} (one a step: eager warm-up "
-          f"steps and graph replays; {captured['u8norm']} recorded in 2 captures); intro step "
-          f"after warm-up, 16-step windows: {timing}; on {card}", flush=True)
+          f"steps and graph replays; {captured['u8norm']} recorded in 2 captures); every 4-D "
+          f"parameter channels-last; intro step after warm-up, 16-step windows: {timing}; cuDNN "
+          f"layout transposes per graphed step (nchwToNhwc/nhwcToNchw kernels, torch.profiler "
+          f"over 2 calls of {IMAGE_SCAN}): {layout}; on {card}", flush=True)
     return cfg, counts, ms
 
 
@@ -1284,6 +1370,7 @@ def phase_bootstrap_image(device, results_dir: str):
               f"bootstrap sync: target {k} shares storage with the decoder's")
     check(all(not p.requires_grad for p in state.target_decoder.parameters()),
           "a target decoder parameter takes a gradient")
+    check_channels_last(state.model)
     last = summary["last_metrics"]
     check(all(math.isfinite(v) for v in last.values()), f"non-finite bootstrap metrics: {last}")
     print(f"bootstrap image: {steps} bootstrap intro steps (gamma_r 1.0, scan_steps "

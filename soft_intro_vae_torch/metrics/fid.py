@@ -435,8 +435,11 @@ def compute_statistics_streaming(apply_fn: Callable[[Tensor], Tensor], batches: 
                                  device=None) -> Tuple[np.ndarray, np.ndarray]:
     """One-pass mean and covariance (float64) of ``apply_fn``'s features over
     NHWC batches (numpy or torch): uint8 batches through ops/u8norm.py (the
-    kernel on a CUDA device), float batches in [0, 1] as they are. The sums
-    stay on ``device`` (default: ``apply_fn.device``) until the end."""
+    kernel on a CUDA device), float batches in [0, 1] as they are. Either goes
+    to the network NCHW-contiguous: u8norm's channels-last output is copied
+    once, and the Inception's convolutions keep the NCHW layout whose speed
+    and pool3 the FID was measured in. The sums stay on ``device`` (default:
+    ``apply_fn.device``) until the end."""
     device = resolve_device(device if device is not None else apply_fn.device)
     n, s, ss = 0, None, None
     for b in batches:
@@ -446,7 +449,7 @@ def compute_statistics_streaming(apply_fn: Callable[[Tensor], Tensor], batches: 
             x = u8_to_unit_nchw(x)
         else:
             x = x.to(torch.float32).permute(0, 3, 1, 2)
-        a = apply_fn(x).double()
+        a = apply_fn(x.contiguous()).double()  # the Inception runs NCHW
         s = a.sum(0) if s is None else s + a.sum(0)
         ss = a.T @ a if ss is None else ss + a.T @ a
         n += a.shape[0]

@@ -6,7 +6,15 @@ ResidualBlock (conv3x3-BN-LReLU(0.2)-conv3x3-BN, a 1x1 ``conv_expand`` skip
 when the channels change, LReLU(0.2) after the add), a pooling encoder and a
 nearest-upsampling decoder, an optional conditional concat.
 
-The layout is NCHW and the module names are the reference's, so a reference
+The nets run channels-last, the JAX package's NHWC (its models/conv.py is
+"NHWC layout throughout"): each net converts its parameters to
+``torch.channels_last`` when it is built, the decoder makes its FC output
+channels-last, and the step's input (ops/u8norm.py) comes so; cuDNN then runs
+the convolutions as NHWC implicit GEMMs with no layout transposes around
+them. Logical shapes stay (B, C, H, W), and the encoder flattens in the
+reference's (C, H, W) order, so ``fc`` keeps the reference's weight.
+
+The module names are the reference's, so a reference
 ``.pth`` state_dict loads strictly and ``utils/torch_compat.py`` of the JAX
 package reads the port's weights: ``main.0`` (stem conv), ``main.1`` (stem
 BN), ``main.res_in_{sz}``, ``main.down_to_{sz}``, ``fc`` in the encoder;
@@ -69,9 +77,9 @@ class ResidualBlock(nn.Module):
 
 
 class ConvEncoder(nn.Module):
-    """(B, C, H, W) -> (mu, logvar): conv5x5 stem + BN + LReLU + AvgPool2,
-    then (ResBlock -> AvgPool2) per channel entry, a final ResBlock, FC ->
-    2*zdim (:78-122)."""
+    """(B, C, H, W), channels-last or not, -> (mu, logvar): conv5x5 stem + BN
+    + LReLU + AvgPool2, then (ResBlock -> AvgPool2) per channel entry, a final
+    ResBlock, FC -> 2*zdim (:78-122)."""
 
     def __init__(self, cdim: int = 3, zdim: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512, 512, 512), image_size: int = 256,
@@ -92,8 +100,10 @@ class ConvEncoder(nn.Module):
         self.conv_output_spatial = image_size // 2 ** len(channels)
         fc_in = cc * self.conv_output_spatial**2 + (cond_dim if conditional else 0)
         self.fc = nn.Linear(fc_in, 2 * zdim)
+        self.to(memory_format=torch.channels_last)
 
     def forward(self, x: Tensor, o_cond: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+        # flatten copies the channels-last output into the reference's (C, H, W) order
         y = self.main(x.to(self.compute_dtype)).flatten(1).float()
         if self.conditional and o_cond is not None:
             y = torch.cat([y, o_cond.float()], dim=1)
@@ -102,9 +112,9 @@ class ConvEncoder(nn.Module):
 
 
 class ConvDecoder(nn.Module):
-    """z -> (B, C, H, W): FC + ReLU, reshaped to the encoder's conv output,
-    then (ResBlock -> nearest upsample 2x) per channel entry in reverse, a
-    final ResBlock and a conv5x5 head with bias (:125-169)."""
+    """z -> (B, C, H, W), channels-last: FC + ReLU, reshaped to the encoder's
+    conv output, then (ResBlock -> nearest upsample 2x) per channel entry in
+    reverse, a final ResBlock and a conv5x5 head with bias (:125-169)."""
 
     def __init__(self, cdim: int = 3, zdim: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512, 512, 512), image_size: int = 256,
@@ -125,12 +135,14 @@ class ConvDecoder(nn.Module):
             cc, sz = ch, sz * 2
         self.main.add_module(f"res_in_{sz}", ResidualBlock(cc, cc))
         self.main.add_module("predict", Conv2d(cc, cdim, 5, 1, 2))
+        self.to(memory_format=torch.channels_last)
 
     def forward(self, z: Tensor, y_cond: Optional[Tensor] = None) -> Tensor:
         z = z.reshape(z.shape[0], -1).float()
         if self.conditional and y_cond is not None:
             z = torch.cat([z, y_cond.reshape(y_cond.shape[0], -1).float()], dim=1)
         y = self.fc(z).view(z.shape[0], *self.conv_input_shape)
+        y = y.contiguous(memory_format=torch.channels_last)
         return self.main(y.to(self.compute_dtype)).float()
 
 

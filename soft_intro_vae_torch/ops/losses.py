@@ -61,6 +61,27 @@ def reparameterize(mu: Tensor, logvar: Tensor, eps: Optional[Tensor] = None,
     return mu.float() + eps * torch.exp(0.5 * logvar.float())
 
 
+def _elementwise(x: Tensor, x_rec: Tensor, loss_type: str) -> Tensor:
+    """The error of each element, float32, in the operands' shape and layout."""
+    x, x_rec = x.float(), x_rec.float()
+    if loss_type == "mse":
+        return torch.square(x_rec - x)
+    if loss_type == "l1":
+        return torch.abs(x_rec - x)
+    if loss_type == "bce":
+        eps = 1e-12  # keep the log terms finite, as the JAX package does
+        p = torch.clamp(x_rec, eps, 1.0 - eps)
+        return -(x * torch.log(p) + (1.0 - x) * torch.log1p(-p))
+    raise NotImplementedError(f"unknown loss_type: {loss_type!r}")
+
+
+def _per_sample_sum(err: Tensor) -> Tensor:
+    """(B,) sums over every non-batch dimension, with no reshape: a
+    channels-last error (the image nets' layout) is summed where it lies, and
+    its gradient keeps the layout."""
+    return err.sum(dim=tuple(range(1, err.dim()))) if err.dim() > 1 else err
+
+
 def reconstruction_loss(x: Tensor, x_rec: Tensor, loss_type: str = "mse",
                         reduction: str = "sum") -> Tensor:
     """Reconstruction error with the reference's reductions.
@@ -71,26 +92,15 @@ def reconstruction_loss(x: Tensor, x_rec: Tensor, loss_type: str = "mse",
     """
     if reduction not in _REDUCTIONS:
         raise NotImplementedError(f"unknown reduction: {reduction!r}")
-    b = x.shape[0]
-    x = x.reshape(b, -1).float()
-    x_rec = x_rec.reshape(b, -1).float()
+    err = _elementwise(x, x_rec, loss_type)
     if loss_type == "mse":
-        return _reduce(torch.sum(torch.square(x_rec - x), dim=1), reduction)
-    if loss_type == "l1":
-        return _reduce(torch.abs(x_rec - x), reduction)
-    if loss_type == "bce":
-        eps = 1e-12  # keep the log terms finite, as the JAX package does
-        p = torch.clamp(x_rec, eps, 1.0 - eps)
-        return _reduce(-(x * torch.log(p) + (1.0 - x) * torch.log1p(-p)), reduction)
-    raise NotImplementedError(f"unknown loss_type: {loss_type!r}")
+        return _reduce(_per_sample_sum(err), reduction)
+    return _reduce(err.reshape(err.shape[0], -1) if reduction == "none" else err, reduction)
 
 
 def per_sample_recon(x: Tensor, x_rec: Tensor, loss_type: str = "mse") -> Tensor:
     """Per-sample reconstruction error (B,), the expELBO ingredient."""
-    err = reconstruction_loss(x, x_rec, loss_type=loss_type, reduction="none")
-    while err.dim() > 1:
-        err = err.sum(dim=-1)
-    return err
+    return _per_sample_sum(_elementwise(x, x_rec, loss_type))
 
 
 def exp_elbo(rec_per_sample: Tensor, kl_per_sample: Tensor, scale: Scalar, beta_rec: Scalar,

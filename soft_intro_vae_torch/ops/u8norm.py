@@ -1,4 +1,5 @@
-"""uint8 NHWC -> float32 NCHW in [0, 1] (port of soft_intro_vae_tpu/ops/u8norm.py).
+"""uint8 NHWC -> float32 (B, C, H, W) in [0, 1], channels-last in memory (port of
+soft_intro_vae_tpu/ops/u8norm.py).
 
 The reference feeds images normalized on the host as ``x.astype(f32) / 255``
 (soft_intro_vae/dataset.py:129-134), and the JAX package reproduces those
@@ -9,11 +10,15 @@ the same bits:
     binary expansion of i/255 never terminates, so no rounding tie can arise
     and the double rounding is exact; it is the CPU path and the oracle the
     kernel is held to on the card;
-  * the hand-written CUDA kernel of ``ops/u8norm_cuda.py``, which also turns
-    the layout in the same launch.
+  * the hand-written CUDA kernel of ``ops/u8norm_cuda.py``.
 
 PyTorch's ``x.float() / 255`` on the card is not one of them: ATen divides
 a tensor by a scalar as a multiply by its reciprocal there.
+
+Both keep the host's NHWC byte order: the result is the (B, C, H, W) view
+of an NHWC buffer, ``is_contiguous(memory_format=torch.channels_last)``, the
+layout the image nets run in (models/conv.py), as the JAX package's nets
+take NHWC.
 """
 
 from __future__ import annotations
@@ -27,13 +32,15 @@ IMPLS = ("auto", "plain", "cuda")
 
 
 def u8_to_unit_nchw_plain(x: Tensor) -> Tensor:
-    """(B, H, W, C) uint8 -> (B, C, H, W) float32, ``x / 255`` correctly rounded."""
+    """(B, H, W, C) uint8 -> (B, C, H, W) float32 with channels-last strides,
+    ``x / 255`` correctly rounded."""
     u8norm_cuda.check_input(x)
-    return (x.double() / 255).float().permute(0, 3, 1, 2).contiguous()
+    return (x.double() / 255).float().permute(0, 3, 1, 2)
 
 
 def u8_to_unit_nchw(x: Tensor, impl: str = "auto") -> Tensor:
-    """``impl="auto"`` launches the kernel on a CUDA tensor and runs the plain
+    """(B, H, W, C) uint8 -> (B, C, H, W) float32, channels-last in memory.
+    ``impl="auto"`` launches the kernel on a CUDA tensor and runs the plain
     version on a CPU tensor; ``"plain"`` forces the plain version (comparisons
     only); ``"cuda"`` needs a CUDA tensor."""
     if impl not in IMPLS:

@@ -2,9 +2,10 @@
 
 Replaces the JAX package's in-step ``u8_to_unit_f32``
 (soft_intro_vae_tpu/ops/u8norm.py): one launch turns a uint8 NHWC batch on
-the card into the float32 NCHW batch the nets take, each value the correctly
-rounded ``i / 255``. The source's header says why PyTorch's own divide is
-not used and what bounds the kernel.
+the card into float32 in the same NHWC order, each value the correctly
+rounded ``i / 255``, returned as the (B, C, H, W) tensor with channels-last
+strides that the image nets take. The source's header says why PyTorch's own
+divide is not used, what bounds the kernel and how it is laid out.
 
 Build: ``ops/cuda_build.py`` compiles the source with ``nvcc`` into a shared
 library with a plain C interface under ``soft_intro_vae_torch/_build/`` and
@@ -18,7 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Tuple
+from typing import NamedTuple
 
 import torch
 
@@ -27,13 +28,27 @@ from soft_intro_vae_torch.ops import cuda_build
 Tensor = torch.Tensor
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "u8norm.cu")
-THREADS = 256
+VEC = 16                     # input bytes a thread takes an iteration
+THREADS = 128                # measured against 64 and 256 (tools/torch_u8norm_variants.py)
 BLOCKS_PER_SM = 16           # grid cap: the grid-stride loop takes the rest
 H100_SMS = 132
 
 # kernel launches made by ``u8_to_unit_nchw_cuda``; a run sets it to 0 and
 # reads it back to show which path went through the kernel
 launches = 0
+
+
+class Plan(NamedTuple):
+    """One launch: ``head`` elements one a thread up to the input's first
+    16-byte boundary, ``vectors`` runs of 16 bytes one a thread an iteration
+    of a grid-stride loop (as four 4-byte words a grid stride apart), ``tail``
+    elements one a thread after them."""
+
+    head: int
+    vectors: int
+    tail: int
+    grid: int
+    threads: int
 
 
 def spec() -> cuda_build.Spec:
@@ -43,8 +58,8 @@ def spec() -> cuda_build.Spec:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.u8norm_nhwc_to_nchw.argtypes = [p, p, ll, ll, ll, ll, i, i, p]
-    lib.u8norm_nhwc_to_nchw.restype = ctypes.c_int
+    lib.u8norm_to_unit_nhwc.argtypes = [p, p, ll, ll, ll, ll, i, i, p]
+    lib.u8norm_to_unit_nhwc.restype = ctypes.c_int
     lib.u8norm_error_string.argtypes = [ctypes.c_int]
     lib.u8norm_error_string.restype = ctypes.c_char_p
 
@@ -57,12 +72,19 @@ def load() -> ctypes.CDLL:
     return _library.load()
 
 
-def plan(n: int, sms: int = H100_SMS) -> Tuple[int, int]:
-    """(grid, threads) for ``n`` output elements: one thread an element, the
-    grid capped at BLOCKS_PER_SM blocks an SM (each thread then loops)."""
+def plan(n: int, offset: int = 0, sms: int = H100_SMS) -> Plan:
+    """The launch for ``n`` elements whose input starts ``offset`` bytes past
+    a 16-byte boundary (``data_ptr() % 16``): one thread a 16-byte run, or a
+    head or tail element, the grid capped at BLOCKS_PER_SM blocks an SM."""
     if n <= 0 or sms <= 0:
         raise ValueError(f"empty launch: {n} elements on {sms} SMs")
-    return min(-(-n // THREADS), BLOCKS_PER_SM * sms), THREADS
+    if not 0 <= offset < VEC:
+        raise ValueError(f"offset must be in [0, {VEC}), got {offset}")
+    head = min(-offset % VEC, n)
+    vectors = (n - head) // VEC
+    tail = n - head - VEC * vectors
+    work = max(vectors, head, tail)
+    return Plan(head, vectors, tail, min(-(-work // THREADS), BLOCKS_PER_SM * sms), THREADS)
 
 
 def check_input(x: Tensor) -> None:
@@ -81,24 +103,24 @@ def _sms(device: torch.device) -> int:
 
 
 def u8_to_unit_nchw_cuda(x: Tensor) -> Tensor:
-    """(B, H, W, C) uint8 on the card -> (B, C, H, W) float32, ``x / 255``
-    correctly rounded. One launch on the current stream; does not synchronise."""
+    """(B, H, W, C) uint8 on the card -> (B, C, H, W) float32 with
+    channels-last strides, ``x / 255`` correctly rounded. One launch on the
+    current stream; does not synchronise."""
     global launches
     if not x.is_cuda:
         raise ValueError(f"u8norm_cuda needs a CUDA tensor, got device {x.device}")
     check_input(x)
-    bsz, h, w, c = x.shape
-    y = torch.empty((bsz, c, h, w), dtype=torch.float32, device=x.device)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if y.numel() == 0:
-        return y
-    grid, threads = plan(y.numel(), _sms(x.device))
+        return y.permute(0, 3, 1, 2)
+    p = plan(y.numel(), x.data_ptr() % VEC, _sms(x.device))
     lib = load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.u8norm_nhwc_to_nchw(x.data_ptr(), y.data_ptr(), bsz, h, w, c, grid, threads,
-                                      stream)
+        err = lib.u8norm_to_unit_nhwc(x.data_ptr(), y.data_ptr(), y.numel(), p.head, p.vectors,
+                                      p.tail, p.grid, p.threads, stream)
     if err != 0:
         raise RuntimeError(f"u8norm launch failed: {lib.u8norm_error_string(err).decode()} "
-                           f"(shape {tuple(x.shape)}, grid {grid}, threads {threads})")
+                           f"(shape {tuple(x.shape)}, {p})")
     launches += 1
-    return y
+    return y.permute(0, 3, 1, 2)

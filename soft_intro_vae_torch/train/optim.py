@@ -46,7 +46,10 @@ def load_state_dict(optimizer: torch.optim.Optimizer, sd: dict) -> None:
     capturable or not, step counts on the host or the device) into
     ``optimizer``, which keeps its own form: its LR tensors (filled with the
     saved LR) and ``capturable`` flags, its step counts where that form keeps
-    them (the params' device when capturable, the host otherwise)."""
+    them (the params' device when capturable, the host otherwise), and its
+    moments in their parameters' memory layout: a checkpoint of NCHW image
+    nets resumes into channels-last ones with channels-last moments, which
+    the foreach Adam needs for its fused route."""
     own = [(g["lr"], g.get("capturable", False)) for g in optimizer.param_groups]
     optimizer.load_state_dict(sd)
     for group, (lr, capturable) in zip(optimizer.param_groups, own):
@@ -59,6 +62,9 @@ def load_state_dict(optimizer: torch.optim.Optimizer, sd: dict) -> None:
             if isinstance(st.get("step"), torch.Tensor):
                 where = p.device if capturable else torch.device("cpu")
                 st["step"] = st["step"].to(device=where, dtype=torch.float32)
+            for key, v in list(st.items()):
+                if key != "step" and isinstance(v, torch.Tensor) and v.shape == p.shape:
+                    st[key] = torch.empty_like(p).copy_(v)  # the parameter's strides
 
 
 def multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float = 0.1):

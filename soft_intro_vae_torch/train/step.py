@@ -30,8 +30,9 @@ then rec and fake in the D-phase; the target decoder's on each of its decodes.
 
 Image batches come as the JAX step takes them, NHWC (``nhwc=True``): a uint8
 batch is normalized through ``input_lut`` (the canonical unit table selects
-the CUDA kernel of ops/u8norm.py, which also makes it NCHW), a float batch
-is made NCHW.
+the CUDA kernel of ops/u8norm.py), a float batch is taken as it is; either
+reaches the nets as the (B, C, H, W) view of its NHWC memory, channels-last,
+the layout the image nets run in (models/conv.py).
 """
 
 from __future__ import annotations
@@ -107,9 +108,15 @@ def _trainable(module: nn.Module, flag: bool) -> None:
         p.requires_grad_(flag)
 
 
+def _channels_last(x: Tensor) -> Tensor:
+    """(B, H, W, C) -> its (B, C, H, W) view, channels-last in memory: no copy
+    when ``x`` is contiguous."""
+    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
 def _input_fn(input_lut, nhwc: bool, u8norm_impl: str = "auto") -> Callable[[Tensor], Tensor]:
-    """The step's batch -> the nets' input (the JAX step's ``_norm``, plus the
-    layout change of NHWC images to NCHW)."""
+    """The step's batch -> the nets' input (the JAX step's ``_norm``): NHWC
+    images as (B, C, H, W) tensors, channels-last in memory like the nets."""
     lut = canonical = None
     if input_lut is not None:
         lut = np.asarray(input_lut, np.float32)
@@ -129,9 +136,9 @@ def _input_fn(input_lut, nhwc: bool, u8norm_impl: str = "auto") -> Callable[[Ten
                 return u8_to_unit_nchw(x, u8norm_impl)  # the kernel on the card, one launch
             if x.device not in tables:
                 tables[x.device] = torch.from_numpy(lut).to(x.device)
-            return tables[x.device][x.long()].permute(0, 3, 1, 2).contiguous()
+            return _channels_last(tables[x.device][x.long()])
         if nhwc:
-            return x.float().permute(0, 3, 1, 2).contiguous()
+            return _channels_last(x.float())
         return x
 
     return prepare

@@ -279,3 +279,58 @@ def test_bfloat16_forward_against_the_jax_package(nets):
     for got, want in ((mu, mu_j), (lv, lv_j), (y.permute(0, 2, 3, 1), y_j)):
         want = np.asarray(want, np.float32)
         assert np.abs(got.numpy() - want).max() <= 3e-2 * np.abs(want).max()
+
+
+def test_every_conv_weight_is_channels_last_and_the_state_dict_is_the_references():
+    """The nets convert their parameters to channels-last when built (the
+    bootstrap target's too); the state_dict keeps the reference twin's names
+    and shapes, so a reference .pth and the JAX converters read it as before."""
+    model = SoftIntroVAE(cdim=CDIM, zdim=Z, channels=CH, image_size=IMG, bootstrap=True)
+    four_d = {k: p for k, p in model.named_parameters() if p.dim() == 4}
+    assert len(four_d) == 6 + 2 * 8  # the encoder's convs, each decoder's
+    for k, p in four_d.items():
+        assert p.is_contiguous(memory_format=torch.channels_last) and p.stride(1) == 1, k
+    twin = nn.Module()
+    twin.encoder, twin.decoder = build_torch_encoder(), build_torch_decoder()
+    want = {k: v.shape for k, v in twin.state_dict().items()}
+    got = {k: v.shape for k, v in model.state_dict().items() if not k.startswith("target_")}
+    assert got == want
+    assert {k[len("target_"):]: v.shape for k, v in model.state_dict().items()
+            if k.startswith("target_")} == {k: v for k, v in want.items() if k.startswith("decoder.")}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_channels_last_nets_equal_the_same_weights_in_nchw(seed):
+    """Train mode, float32: the channels-last nets against the reference-named
+    NCHW twin holding the same weights, on the same batch and z. Outputs, and
+    after one backward every parameter's gradient, within rtol 1e-5 and 1e-5
+    of each tensor's largest magnitude (measured at 3 seeds: outputs <= 1.7e-6,
+    gradients <= 7.7e-6 of that magnitude; the BN statistics and convolutions
+    sum in another order in each layout). The conv gradients are
+    channels-last, as the parameters, which Adam's foreach route needs."""
+    torch.manual_seed(13 + seed)
+    model = SoftIntroVAE(cdim=CDIM, zdim=Z, channels=CH, image_size=IMG).train()
+    twin = nn.Module()
+    twin.encoder, twin.decoder = build_torch_encoder(), build_torch_decoder()
+    twin.load_state_dict(model.state_dict(), strict=True)
+    twin.train()
+    assert all(p.is_contiguous() for p in twin.parameters())
+    x = torch.from_numpy(_images(14 + seed).transpose(0, 3, 1, 2).copy())
+    z = torch.randn(B, Z, generator=torch.Generator().manual_seed(seed))
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    mu, lv = model.encoder(x_cl)
+    rec = model.decoder(z)
+    assert rec.is_contiguous(memory_format=torch.channels_last)
+    t_mu, t_lv = twin.encoder.fc(twin.encoder.main(x).flatten(1)).chunk(2, dim=1)
+    t_rec = twin.decoder.main(twin.decoder.fc(z).view(B, CH[-1], 4, 4))
+    for got, want in ((mu, t_mu), (lv, t_lv), (rec, t_rec)):
+        got, want = got.detach(), want.detach()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    ((mu ** 2).sum() + lv.exp().sum() + ((rec - x_cl) ** 2).sum()).backward()
+    ((t_mu ** 2).sum() + t_lv.exp().sum() + ((t_rec - x) ** 2).sum()).backward()
+    want = dict(twin.named_parameters())
+    for k, p in model.named_parameters():
+        w = want[k].grad
+        torch.testing.assert_close(p.grad, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()), msg=k)
+        if p.dim() == 4:
+            assert p.grad.is_contiguous(memory_format=torch.channels_last), k

@@ -261,6 +261,24 @@ def test_statistics_of_uint8_and_float_batches_are_equal_and_match_jax():
     assert d == pytest.approx(0.0, abs=1e-3)
 
 
+@pytest.mark.parametrize("kind", ["uint8", "float"])
+def test_the_network_takes_nchw_contiguous_input(kind):
+    """u8norm gives a channels-last batch (the image nets' layout); the FID
+    network still gets NCHW-contiguous input, the layout its speed and pool3
+    were measured in."""
+    u8 = np.random.default_rng(1).integers(0, 256, (2, 4, 4, 4, 3), dtype=np.uint8)
+    feats, seen = _LinearFeatures(), []
+
+    def recording(x):
+        seen.append(x.is_contiguous())
+        return feats(x)
+
+    recording.device = feats.device
+    batches = u8 if kind == "uint8" else u8.astype(np.float32) / np.float32(255)
+    fid.compute_statistics_streaming(recording, iter(batches))
+    assert seen == [True, True]
+
+
 def _fake_pt_inception(tmp_path):
     torch.manual_seed(1)
     net = fid.InceptionV3FID()

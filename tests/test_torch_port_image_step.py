@@ -253,3 +253,22 @@ def test_bfloat16_intro_step_against_the_jax_package(jax_setup):
     for k, rel in (("loss_e", 2e-3), ("loss_d", 2e-3), ("rec", 2e-3), ("kl_real", 2e-3),
                    ("kl_fake", 2e-2), ("kl_rec", 2e-2)):
         assert float(m[k]) == pytest.approx(float(jm[k]), rel=rel), k
+
+
+@pytest.mark.parametrize("route", ["unit table", "other table", "float"])
+def test_every_input_route_gives_the_nets_channels_last(route):
+    """The three routes of an NHWC batch (the unit table's u8norm, another
+    table's lookup, a float batch) give the nets the same layout as their
+    parameters: the (B, C, H, W) view of NHWC memory, channels-last, with the
+    values of the host's normalization."""
+    from soft_intro_vae_torch.train.step import _input_fn
+
+    x = _batch(np.random.RandomState(27))
+    lut = {"unit table": UNIT_LUT, "other table": np.arange(256, dtype=np.float32) / 127.5 - 1.0,
+           "float": None}[route]
+    feed = x.astype(np.float32) / np.float32(255) if route == "float" else x
+    got = _input_fn(lut, nhwc=True)(torch.from_numpy(feed))
+    want = (UNIT_LUT if lut is None else lut)[x].transpose(0, 3, 1, 2)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last) and got.stride(1) == 1
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -358,3 +358,36 @@ def test_graph_epochs_equal_single_steps_on_the_card(tmp_path, cuda_device):
     finally:
         torch.backends.cudnn.deterministic = saved
     _runs_equal(runs[1], runs[0])
+
+
+def test_a_checkpoint_of_nchw_nets_resumes_with_channels_last_moments(tmp_path):
+    """A checkpoint written by NCHW image nets (the port's layout before its
+    nets ran channels-last) holds NCHW Adam moments. Loading it re-strides
+    each moment to its channels-last parameter (train/optim.py
+    ``load_state_dict``), as the CUDA foreach Adam needs for its fused route;
+    the next step equals the step of the same checkpoint resumed into NCHW
+    nets within rtol 1e-6 (the layouts sum the convolutions in another order)."""
+    x = torch.from_numpy(_u8(4, seed=9))
+    saver, _, intro = build_image_training(_cfg(tmp_path, seed=5), SPEC)
+    saver.model.to(memory_format=torch.contiguous_format)
+    intro(saver, x)
+    nchw = [s["exp_avg"] for s in saver.opt_e.state.values() if s["exp_avg"].dim() == 4
+            and s["exp_avg"].shape[-1] > 1]
+    assert nchw and all(m.is_contiguous() and m.stride(1) > 1 for m in nchw)
+    path = Checkpointer(str(tmp_path / "w")).save(saver, 1, 1)
+    runs = []
+    for layout in (torch.channels_last, torch.contiguous_format):
+        state, _, step = build_image_training(_cfg(tmp_path, seed=6), SPEC)
+        state.model.to(memory_format=layout)
+        state.load_state_dict(torch.load(path, weights_only=True))
+        for opt in (state.opt_e, state.opt_d):
+            for p, st in opt.state.items():
+                assert st["exp_avg"].stride() == st["exp_avg_sq"].stride() == p.stride()
+                if layout == torch.channels_last and p.dim() == 4:
+                    assert st["exp_avg"].is_contiguous(memory_format=torch.channels_last)
+        _, m = step(state, x)
+        runs.append(({k: float(v) for k, v in m.items()}, _weights(state)))
+    (ma, wa), (mb, wb) = runs
+    assert ma == pytest.approx(mb, rel=1e-6)
+    for k in wb:
+        torch.testing.assert_close(wa[k], wb[k], rtol=1e-6, atol=0, msg=k)

@@ -92,3 +92,24 @@ def test_reparameterize_with_given_eps():
     gen = torch.Generator().manual_seed(0)
     drawn = tl.reparameterize(torch.tensor(mu), torch.tensor(lv), generator=gen)
     assert drawn.shape == (4, 8) and torch.isfinite(drawn).all()
+
+
+@pytest.mark.parametrize("loss_type", ["mse", "l1", "bce"])
+def test_channels_last_pairs_reduce_in_memory_order_to_the_same_loss(loss_type):
+    """A channels-last image pair (the image nets' layout) is reduced where it
+    lies, with no reshape: the per-sample and mean losses equal the NCHW
+    pair's within rel 1e-6 (the sums run in memory order, (H, W, C) as the JAX
+    package's NHWC arrays), and the gradient keeps the layout."""
+    rs = np.random.RandomState(31)
+    x = torch.from_numpy(rs.rand(4, 3, 8, 8).astype(np.float32))
+    r = torch.from_numpy(rs.rand(4, 3, 8, 8).astype(np.float32) * 0.98 + 0.01)
+    cl = torch.channels_last
+    r_cl = r.contiguous(memory_format=cl).requires_grad_(True)
+    got = tl.per_sample_recon(x.contiguous(memory_format=cl), r_cl, loss_type)
+    want = tl.per_sample_recon(x, r, loss_type)
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(), rtol=1e-6)
+    mean = tl.reconstruction_loss(x.contiguous(memory_format=cl), r_cl, loss_type, "mean")
+    assert float(mean.detach()) == pytest.approx(
+        float(tl.reconstruction_loss(x, r, loss_type, "mean")), rel=1e-6)
+    mean.backward()
+    assert r_cl.grad.is_contiguous(memory_format=cl) and r_cl.grad.stride(1) == 1

@@ -1,7 +1,10 @@
-"""Port parity: ops/u8norm.py, the uint8 NHWC -> float32 NCHW normalize.
+"""Port parity: ops/u8norm.py, the uint8 NHWC -> float32 normalize, returned
+as (B, C, H, W) with channels-last strides.
 
 On the CPU the plain version runs (the CUDA kernel is held to it on the card
-by chip_smoke.py). Everything here is exact: bit-equality, no tolerance.
+by chip_smoke.py); the kernel's launch plan is plain Python and is held here
+to covering every element once. Everything here is exact: bit-equality, no
+tolerance.
 """
 
 import jax
@@ -37,12 +40,18 @@ def test_a_reciprocal_multiply_is_not_exact():
 @pytest.mark.parametrize("shape", [(32, 32, 32, 3), (5, 28, 28, 1), (3, 7, 5, 1), (1, 1, 1, 1),
                                    (2, 3, 9, 4)])
 def test_layout_is_nchw_of_the_nhwc_input(shape):
+    """Logical (B, C, H, W); in memory the input's NHWC order, channels-last."""
     x = np.random.default_rng(sum(shape)).integers(0, 256, shape, dtype=np.uint8)
     got = u8norm.u8_to_unit_nchw(torch.from_numpy(x))
-    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert got.dtype == torch.float32 and got.is_contiguous(memory_format=torch.channels_last)
     assert tuple(got.shape) == (shape[0], shape[3], shape[1], shape[2])
-    np.testing.assert_array_equal(got.numpy(), (x.astype(np.float32) / np.float32(255))
-                                  .transpose(0, 3, 1, 2))
+    want = x.astype(np.float32) / np.float32(255)
+    np.testing.assert_array_equal(got.numpy(), want.transpose(0, 3, 1, 2))
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    jax_values = np.asarray(jax.jit(u8_to_unit_f32)(jnp.asarray(x)))
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy().view(np.uint32),
+                                  jax_values.view(np.uint32))
 
 
 def test_impl_cuda_on_a_cpu_tensor_raises():
@@ -71,14 +80,54 @@ def test_the_kernel_refuses_a_wrong_dtype_or_layout(bad, err):
                                     (32 * 32 * 32 * 3, 132), (32 * 256 * 256 * 3, 132),
                                     (10**9, 114), (5 * 28 * 28, 1)])
 def test_launch_plan_covers_every_element(n, sms):
-    grid, threads = u8norm_cuda.plan(n, sms)
-    assert threads % 32 == 0 and 0 < threads <= 1024
-    assert 0 < grid <= u8norm_cuda.BLOCKS_PER_SM * sms
-    # one element a thread until the cap; past it the grid-stride loop covers the rest
-    assert grid * threads >= n or grid == u8norm_cuda.BLOCKS_PER_SM * sms
-    assert (grid - 1) * threads < n
+    p = u8norm_cuda.plan(n, 0, sms)
+    _check_plan(p, n, 0, sms)
+    assert p.head == 0 and p.vectors == n // 16 and p.tail == n % 16
+
+
+def _check_plan(p, n, offset, sms):
+    """The kernel's split (csrc/u8norm.cu): head elements, 16-byte vectors,
+    tail elements, each a thread; the C entry point's checks too."""
+    vec = u8norm_cuda.VEC
+    assert p.threads % 32 == 0 and 0 < p.threads <= 1024
+    assert 0 < p.grid <= u8norm_cuda.BLOCKS_PER_SM * sms
+    assert 0 <= p.head < vec and 0 <= p.tail < vec and p.vectors >= 0
+    assert p.head + vec * p.vectors + p.tail == n
+    if p.vectors:  # the vectors start on a 16-byte boundary of the input
+        assert (offset + p.head) % vec == 0
+    assert p.head == min(-offset % vec, n)  # no longer a head than the boundary needs
+    threads = p.grid * p.threads
+    assert threads >= max(p.head, p.tail)
+    # one vector a thread until the cap; past it the grid-stride loop covers the rest
+    assert threads >= p.vectors or p.grid == u8norm_cuda.BLOCKS_PER_SM * sms
+    assert (p.grid - 1) * p.threads < max(p.vectors, p.head, p.tail)
+
+
+@pytest.mark.parametrize("offset", range(16))
+@pytest.mark.parametrize("n", [1, 5, 15, 16, 17, 31, 105, 2 * 105, 5 * 28 * 28, 32 * 32 * 32 * 3])
+def test_launch_plan_at_any_offset_covers_every_element_once(n, offset):
+    """Aligned, misaligned (a slice of an odd-sized K-batch: (3, 7, 5, 1) is
+    105 bytes) and odd ``numel``: the head, the grid-stride loop over 16-byte
+    runs (four 4-byte words a grid stride apart) and the tail, walked as the
+    kernel walks them, write each element once."""
+    p = u8norm_cuda.plan(n, offset)
+    _check_plan(p, n, offset, u8norm_cuda.H100_SMS)
+    seen = np.zeros(n, np.int64)
+    stride = p.grid * p.threads
+    words = 4 * p.vectors
+    for t in range(stride):
+        for base in range(t, words, 4 * stride):  # four 4-byte words a grid stride apart
+            for i in range(base, min(base + 4 * stride, words), stride):
+                seen[p.head + 4 * i:p.head + 4 * i + 4] += 1
+        if t < p.head:
+            seen[t] += 1
+        if t < p.tail:
+            seen[p.head + 16 * p.vectors + t] += 1
+    np.testing.assert_array_equal(seen, np.ones(n, np.int64))
 
 
 def test_launch_plan_refuses_empty_work():
     with pytest.raises(ValueError):
         u8norm_cuda.plan(0)
+    with pytest.raises(ValueError):
+        u8norm_cuda.plan(16, 16)

@@ -14,8 +14,9 @@ then rounded up to whole calls, and the kernels the replays launch are
 traced like any other.
 Prints the card's name and power limit, ms/step, the device's busy time and
 its idle share of the traced window and of the untraced step, kernel launches
-a step, and the device time by kernel family and by kernel, then one JSON
-line. Fails when the trace holds no device time. ``--root`` profiles the
+a step, cuDNN's layout transposes a step (``nchwToNhwc``/``nhwcToNchw``
+kernels: launches and ms), and the device time by kernel family and by
+kernel, then one JSON line. Fails when the trace holds no device time. ``--root`` profiles the
 package of another checkout (built into that checkout's ``_build/``), so two
 versions can be compared in one call; ``--out`` writes every kernel's ms/step
 and launches a step to a JSON file. Imports nothing of JAX.
@@ -33,10 +34,16 @@ from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# cuDNN's layout conversions around a convolution whose operands are not in
+# the layout of the kernel it picked (lower-case substrings of kernel names)
+TRANSPOSES = ("nchwtonhwc", "nhwctonchw")
 # kernel name substring -> family, first match wins
 FAMILIES = (
     ("u8norm_kernel", "u8norm kernel (hand-written)"),
+    *((key, "layout transposes") for key in TRANSPOSES),
+    ("direct_copy_kernel", "copies (ATen copy_)"),
     ("batch_norm", "batch norm"),
+    ("batchnorm", "batch norm"),  # cuDNN's NHWC kernels: batchnorm_fwtr_nhwc_semiPersist, ...
     ("bn_", "batch norm"),
     ("multi_tensor", "optimizer"),
     ("adam", "optimizer"),
@@ -155,6 +162,8 @@ def main(argv=None) -> int:
     for name, ms in kernels.items():
         fams[family(name)] += ms
         fam_launches[family(name)] += launches[name]
+    transposes = {k: (ms / n, launches[k] / n) for k, ms in kernels.items()
+                  if any(t in k.lower() for t in TRANSPOSES)}
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; package {root}")
     print(f"image intro step, CIFAR-10 recipe (32x32, channels 64/128/256, batch 32, z 128, f32, "
           f"uint8 resident), scan_steps {scan}: {ms_step:.3f} ms/step untraced, "
@@ -162,7 +171,9 @@ def main(argv=None) -> int:
           f"device busy {busy_ms / n:.3f} ms/step, idle share {1 - busy_ms / traced_ms:.3f} of "
           f"the traced window, {1 - busy_ms / n / ms_step:.3f} of the untraced step; "
           f"{sum(launches.values()) / n:.0f} kernel launches/step, u8norm "
-          f"{u8_launches / n:.0f}/step")
+          f"{u8_launches / n:.0f}/step; layout transposes "
+          f"{sum(c for _, c in transposes.values()):.1f}/step, "
+          f"{sum(ms for ms, _ in transposes.values()):.3f} ms/step")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:32s} {ms / n:8.3f} ms/step  {ms / busy_ms:6.1%}  "
               f"x{fam_launches[fam] / n:6.1f}")
@@ -174,6 +185,8 @@ def main(argv=None) -> int:
                       "idle_share_untraced": 1 - busy_ms / n / ms_step,
                       "launches_step": sum(launches.values()) / n,
                       "u8norm_launches_step": u8_launches / n,
+                      "layout_transposes_step": {k: {"ms": ms, "launches": c}
+                                                 for k, (ms, c) in transposes.items()},
                       "families_ms_step": {k: v / n for k, v in fams.items()},
                       "families_launches_step": {k: v / n for k, v in fam_launches.items()}}))
     if args.out:
