@@ -74,7 +74,19 @@ Phases, each printing one line; any failure exits non-zero:
               CIFAR-10 run at scan_steps 8 (u8norm launches = steps + real
               uint8 batches, no graph captured across the FID between graph
               calls, losses bit-equal to the run without FID); the style FID
-              of the EMA generator at LOD 2.
+              of the EMA generator at LOD 2;
+ 15. dp:      data parallelism (soft_intro_vae_torch/parallel), run last:
+              (a) NCCL at world 1 in this process: ``train_soft_intro_vae`` at
+              the CIFAR-10 recipe and scan_steps 8 with the collectives
+              (gradient, BatchNorm and metrics reduces) captured in the
+              graphs, their counts on the device; graphed against eager
+              distributed steps, bit-equal; the route's losses against the
+              non-distributed route's (cuDNN BN) over one step; ms/step of
+              both routes and NCCL's kernels a step; (b) two ranks on the card
+              over gloo (eager), spawned by parallel/launch.py, against one
+              rank: the image, 3D and style probes (parallel/verify.py) at
+              their recipes' widths, the ranks bit-equal. Each destroys its
+              process group.
 Launch counts are launches on the device: a wrapper's calls, less those
 recorded into a CUDA graph's capture, plus those its replays made
 (train/graph.py).
@@ -552,8 +564,11 @@ def reset_counts() -> None:
     from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, u8norm_cuda
     from soft_intro_vae_torch.train import graph
 
+    from soft_intro_vae_torch.parallel import collectives
+
     chamfer_cuda.launches = u8norm_cuda.launches = 0
     adain_cuda.launches_fwd = adain_cuda.launches_bwd = 0
+    collectives.calls.clear()
     graph.captured.clear()
     graph.replayed.clear()
 
@@ -1195,12 +1210,12 @@ def layout_transposes(prof, steps: int) -> dict:
     return out
 
 
-def image_ms_step(cfg, spec, ds, device, scan: int):
+def image_ms_step(cfg, spec, ds, device, scan: int, trace=layout_transposes):
     """ms per intro step after warm-up at ``scan_steps`` = ``scan``, resident
     uint8 batches (a chunk of ``scan`` at scan > 1): (median, windows,
-    layout transposes a step), each window 16 steps; at scan > 1 the
-    transposes come from a torch.profiler pass over two calls of graph
-    replays (``layout_transposes``), else None."""
+    ``trace(prof, steps)``), each window 16 steps; at scan > 1 the trace is
+    a torch.profiler pass over two calls of graph replays (by default the
+    layout transposes a step, ``layout_transposes``), else None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1231,7 +1246,7 @@ def image_ms_step(cfg, spec, ds, device, scan: int):
             for i in range(2):
                 state, m = intro(state, inputs[i % 2])
             torch.cuda.synchronize()
-        transposes = layout_transposes(prof, 2 * scan)
+        transposes = trace(prof, 2 * scan)
     del state, intro
     torch.cuda.empty_cache()
     return sorted(windows)[len(windows) // 2], windows, transposes
@@ -1634,6 +1649,240 @@ def phase_fid(device, card: str, results_dir: str):
           flush=True)
 
 
+# the dp phase: data parallelism over torch.distributed (parallel/)
+DP_TIMEOUT_S = 420     # the spawned ranks' deadline on the card, each collective's too
+DP_RTOL_ROUTES = 1e-5  # distributed (global BN, E[x^2] - E[x]^2) against cuDNN's BN route
+DP_RTOL_RANKS = 1e-3   # two ranks against one, per leaf (the JAX bound, parallel/verify.py)
+DP_STYLE = dict(startf=64, maxf=512, layer_count=7, latent_size=512, mapping_layers=8)
+DP_STYLE_RTOL_LEAF = 1e-2    # the JAX package's own rule for its style step (dp_gloo_two_ranks)
+DP_STYLE_RTOL_GLOBAL = 1e-2
+
+
+def nccl_kernels(prof, steps: int):
+    """NCCL's kernels in a torch.profiler trace: (launches a step, device ms
+    a step, the u8norm launches the trace holds of ``steps``: one a step
+    when it caught every replay)."""
+    import torch
+
+    from tools.torch_profile_image import device_us
+
+    launches = ms = 0.0
+    u8 = 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        if "u8norm_kernel" in evt.key:
+            u8 += evt.count
+        if "nccl" in evt.key.lower():
+            launches += evt.count / steps
+            ms += device_us(evt) / 1e3 / steps
+    check(u8 > 0, "the profiled replays show no u8norm launch: the trace missed the graphs")
+    return launches, ms, u8
+
+
+def dp_nccl_world_one(device, card: str, results_dir: str) -> str:
+    """(a) NCCL at world 1 in this process: the CIFAR-10 recipe through
+    ``train_soft_intro_vae`` at scan_steps 8 with the collectives captured in
+    the graph; graph against eager steps; the route against the
+    non-distributed one (``mesh.unsharded``); ms/step of both routes."""
+    import torch
+
+    from soft_intro_vae_torch.parallel import collectives, mesh, multihost
+    from soft_intro_vae_torch.train.image import build_image_training, train_soft_intro_vae
+    from soft_intro_vae_torch.train.step import INTRO_NOISES
+
+    world = multihost.initialize_multihost(f"file://{results_dir}/nccl_store", 1, 0,
+                                           backend="nccl", device=str(device),
+                                           timeout_s=DP_TIMEOUT_S)
+    try:
+        check(world.active and world.backend == "nccl" and world.size == 1, f"world {world}")
+        # the trainer's main path on the distributed route
+        cfg = image_config(device, os.path.join(results_dir, "nccl"), scan_steps=IMAGE_SCAN)
+        spec, ds = image_dataset()
+        steps = 2 * (IMAGE_N // cfg.batch_size)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, summary = train_soft_intro_vae(cfg, ds, spec)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts, captured = read_counts(), captured_counts()
+        check(summary["steps"] == state.step == steps and counts["u8norm"] == steps,
+              f"dp image run: {summary['steps']} steps, u8norm launches {counts['u8norm']}")
+        check(counts["nccl_grads"] == 3 * steps // 2 and counts["nccl_metrics"] == steps,
+              f"dp image run: gradient reduces {counts['nccl_grads']}, metrics reduces "
+              f"{counts['nccl_metrics']} in {steps} steps (1 + 2 a vanilla + intro pair)")
+        check(all(captured.get(f"nccl_{k}", 0) > 0 for k in ("grads", "bn_fwd", "bn_bwd",
+                                                              "metrics")),
+              f"the graphs did not capture every kind of collective: {captured}")
+        last = summary["last_metrics"]
+        check(all(math.isfinite(v) for v in last.values()), f"non-finite dp metrics: {last}")
+        print(f"dp nccl: trainer run passed: {steps} steps in {run_s:.2f} s, device counts "
+              f"{ {k: v for k, v in counts.items() if v} }, captured {dict(captured)}", flush=True)
+        del state
+
+        # graphed distributed steps against eager distributed steps
+        n = 16
+        spec16, ds16 = image_dataset(n * 32, seed=9)
+        xs = torch.from_numpy(ds16.images).to(device).view(n, 32, *ds16.images.shape[1:])
+        base = image_config(device, "")
+
+        def build(scan):
+            s, _, intro = build_image_training(dataclasses.replace(base, scan_steps=scan), spec16)
+            return s, intro
+
+        with exact_routes():
+            graph_run, eager_run, g_counts, g_captured = graph_against_eager(build, xs, IMAGE_SCAN)
+        differ, worst, compared = compare_runs(graph_run, eager_run)
+        check(not differ, f"dp graph against eager steps: {len(differ)} of {compared} tensors "
+              f"differ (first {differ[:6]}), max |diff| {worst!r}")
+        per_replay = {k: v for k, v in sorted(g_captured.items())}
+        del graph_run, eager_run
+
+        # the distributed route against the non-distributed one, one eager step
+        spec1, ds1 = image_dataset(base.batch_size, seed=7)
+        x = torch.from_numpy(ds1.images).to(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(17)
+        noises = {k: torch.randn((base.batch_size, base.z_dim), generator=gen, device=device)
+                  for k in INTRO_NOISES}
+        losses = {}
+        with exact_routes():
+            for route in ("dp", "plain"):
+                with (contextlib.nullcontext() if route == "dp" else mesh.unsharded()):
+                    s, _, intro = build_image_training(base, spec1)
+                    _, m = intro(s, x, noises)
+                    losses[route] = {k: float(v) for k, v in m.items()}
+        rel = {k: abs(losses["dp"][k] - losses["plain"][k]) / abs(losses["plain"][k])
+               for k in ("loss_e", "loss_d")}
+        print(f"dp nccl: graph against eager bit-equal ({compared} tensors); routes rel {rel}",
+              flush=True)
+        check(all(r <= DP_RTOL_ROUTES for r in rel.values()),
+              f"dp route against the non-distributed route: {losses}")
+
+        # ms/step of both routes at scan 8, NCCL's kernels from a trace
+        ms = {"dp": image_ms_step(cfg, spec, ds, device, IMAGE_SCAN, trace=nccl_kernels)}
+        with mesh.unsharded():
+            ms["plain"] = image_ms_step(cfg, spec, ds, device, IMAGE_SCAN, trace=nccl_kernels)
+        (nccl_launches, nccl_ms, u8_seen), plain_nccl = ms["dp"][2], ms["plain"][2]
+        check(plain_nccl[0] == 0, f"{plain_nccl[0]} NCCL kernels a step off the dp route")
+        calls = {k: v for k, v in collectives.calls.items()}
+    finally:
+        multihost.shutdown()
+    check(not torch.distributed.is_initialized(), "the NCCL group was not destroyed")
+    timing = ", ".join(f"{r} {m:.3f} ms/step ({'/'.join(f'{w:.3f}' for w in ws)})"
+                       for r, (m, ws, _) in ms.items())
+    return (f"dp nccl: world 1 in this process, CIFAR-10 recipe width, scan_steps {IMAGE_SCAN}: "
+            f"{steps} steps through train_soft_intro_vae in {run_s:.2f} s, gradient reduces "
+            f"{counts['nccl_grads']}, metrics reduces {counts['nccl_metrics']}, BN reduces "
+            f"{counts['nccl_bn_fwd']} forward / {counts['nccl_bn_bwd']} backward (on the "
+            f"device: eager warm-up steps plus replays); launches per intro replay {per_replay}; "
+            f"graph against eager: all {compared} tensors bit-equal over {n} steps; routes, one "
+            f"f32 step: loss_e rel {rel['loss_e']:.2e}, loss_d rel {rel['loss_d']:.2e} (rtol "
+            f"{DP_RTOL_ROUTES:g}); intro ms/step at scan {IMAGE_SCAN}: {timing}; NCCL kernels a "
+            f"step {nccl_launches:.1f}, {nccl_ms:.4f} ms (torch.profiler over 2 calls, "
+            f"{u8_seen} of {2 * IMAGE_SCAN} u8norm launches in the trace); "
+            f"collective calls in this process {sum(calls.values())}; on {card}")
+
+
+def dp_gloo_two_ranks(device, card: str, results_dir: str) -> str:
+    """(b) Two ranks on the one card over gloo, eager, spawned by
+    parallel/launch.py: the image, 3D and style probes, each against a
+    1-rank run of the same global batch, weights and draws."""
+    import numpy as np
+
+    from soft_intro_vae_torch.parallel.launch import run_ranks, write_inputs
+    from soft_intro_vae_torch.parallel.verify import compare_gradient_trees
+
+    rng = np.random.default_rng(23)
+    image_x = rng.integers(0, 256, (32, 32, 32, 3), dtype=np.uint8)
+    clouds = (rng.random((32, 2048, 3)) - 0.5).astype(np.float32)
+    style_xs = (rng.random((2, 32, 16, 16, 3)) * 2.0 - 1.0).astype(np.float32)
+    inputs = write_inputs(os.path.join(results_dir, "dp_inputs.npz"), {
+        "image": dict(x=image_x), "threed": dict(x=clouds), "style": dict(xs=style_xs)})
+    jobs = [
+        # lr 1e-3 and the gradients compared: after an ascent of lr 1 at full width
+        # the D phase starts from an encoder far from the init, and its gradient
+        # carries the E phase's last bits; at 3D widths the narrow prior's
+        # logvar leaves exp's range
+        dict(name="image", probe="sgd_gradient_probe",
+             kwargs=dict(variant="image", mode="intro", z_dim=128, channels=[64, 128, 256],
+                         image_size=32, lr=1e-3, step_kwargs=dict(beta_neg=256.0))),
+        dict(name="threed", probe="sgd_gradient_probe",
+             kwargs=dict(variant="3d", mode="intro", z_dim=128, n_points=2048, lr=1e-3,
+                         step_kwargs=dict(beta_rec=20.0, beta_neg=256.0))),
+        dict(name="style", probe="style_step_probe",
+             kwargs=dict(model_kwargs=DP_STYLE, lod=2, blend=0.5, steps=1, lr=1e-3,
+                         perturb=0.05, moved_only=True)),
+    ]
+    t0 = time.perf_counter()
+    two = run_ranks(2, jobs, results_dir, inputs=inputs, device=str(device), backend="gloo",
+                    timeout_s=DP_TIMEOUT_S)
+    t2 = time.perf_counter() - t0
+    (one,) = run_ranks(1, jobs, results_dir, inputs=inputs, device=str(device), backend="gloo",
+                       timeout_s=DP_TIMEOUT_S)
+    t1 = time.perf_counter() - t0 - t2
+    for k in two[0]:
+        check(np.array_equal(two[0][k], two[1][k]), f"dp gloo: the ranks differ in {k}")
+    worst = {}
+    for name, kind in (("image", "grad"), ("threed", "grad")):
+        pre = f"{name}/{kind}/"
+        got = {k: v for k, v in two[0].items() if k.startswith(pre)}
+        want = {k: v for k, v in one.items() if k.startswith(pre)}
+        check(len(want) > 4 and set(got) == set(want), f"dp gloo {name}: {len(want)} leaves")
+        try:
+            worst[name] = compare_gradient_trees(got, want, rtol=DP_RTOL_RANKS)
+        except AssertionError as e:
+            fail(f"dp gloo {name}: two ranks against one: {e}")
+    # style: the JAX package's rule for its style data-parallel step
+    # (tests/test_parallel.py test_style_dp_step_matches_single_device): per
+    # leaf relative L2 < 1e-2 but for the blocks' biases, which feed an
+    # instance norm and have no gradient but rounding noise, and the whole
+    # gradient < DP_STYLE_RTOL_GLOBAL; the first block's instance norms of a
+    # near-constant 4x4 plane carry the batch split's last bits into the rest
+    keys = [k for k in one if k.startswith("style/grad/")]
+    check(len(keys) > 4, f"dp gloo style: {len(keys)} leaves")
+    style_worst, sq_diff, sq_ref = 0.0, 0.0, 0.0
+    for k in keys:
+        a, b = two[0][k].astype(np.float64), one[k].astype(np.float64)
+        diff, norm = float(np.linalg.norm(a - b)), float(np.linalg.norm(b))
+        sq_diff, sq_ref = sq_diff + diff ** 2, sq_ref + norm ** 2
+        if "bias" in k and "block" in k:
+            continue
+        check(diff < DP_STYLE_RTOL_LEAF * norm, f"dp gloo style {k}: L2 {diff:.3e}, norm {norm:.3e}")
+        style_worst = max(style_worst, diff / norm)
+    style_global = (sq_diff / sq_ref) ** 0.5
+    check(style_global < DP_STYLE_RTOL_GLOBAL, f"dp gloo style: whole gradient {style_global:.3e}")
+    dl = one["style/dlatent_avg"].astype(np.float64)
+    dl_rel = float(np.linalg.norm(two[0]["style/dlatent_avg"] - dl) / np.linalg.norm(dl))
+    check(dl_rel < DP_RTOL_RANKS, f"dp gloo style dlatent_avg: relative L2 {dl_rel:.3e}")
+    check(int(two[0]["style/step"]) == 1, "dp gloo style: steps")
+    return (f"dp gloo: two ranks on {card} over gloo (eager), each against one rank on the "
+            f"same global batch, weights and draws, TF32 off, convolutions by ATen's GEMMs "
+            f"(cuDNN off in the ranks); ranks bit-equal in all "
+            f"{len(two[0])} arrays; worst per-leaf relative L2 (bound {DP_RTOL_RANKS:g}) of the "
+            f"all-reduced gradients of one intro step (SGD lr 1e-3): image at the CIFAR-10 "
+            f"recipe width (global batch 32, 16 a rank) {worst['image']:.2e}; 3D at "
+            f"soft_intro_vae_hp.json width (2048 points, global batch 32) "
+            f"{worst['threed']:.2e}; style, configs/ffhq256.yaml widths and depth (7 blocks, "
+            f"latent 512, f32, not the config's bf16), LOD 2 blend 0.5, global batch 32 (not the "
+            f"table's 128), one intro step with style mixing and decoder noise drawn, weights "
+            f"moved off the init by 0.05 randn: worst leaf {style_worst:.2e} of {len(keys)} "
+            f"(blocks' biases aside; bound {DP_STYLE_RTOL_LEAF:g}, the JAX package's style rule), "
+            f"whole gradient {style_global:.2e} (bound {DP_STYLE_RTOL_GLOBAL:g}), dlatent_avg "
+            f"{dl_rel:.2e}; 2 ranks {t2:.1f} s, 1 rank {t1:.1f} s")
+
+
+def phase_dp(device, card: str, results_dir: str):
+    """Data parallelism: (a) NCCL at world 1 in this process, (b) two gloo
+    ranks on the card; each destroys its process group."""
+    t0 = time.perf_counter()
+    print(dp_nccl_world_one(device, card, results_dir), flush=True)
+    ta = time.perf_counter() - t0
+    print(dp_gloo_two_ranks(device, card, results_dir), flush=True)
+    print(f"dp time (s): nccl world 1 {ta:.1f}, gloo two ranks {time.perf_counter() - t0 - ta:.1f}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1698,6 +1947,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_fid(device, card, results_dir)
     lap("fid")
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
+        phase_dp(device, card, results_dir)
+    lap("dp")
     print(f"timing (s): {', '.join(laps)}; build to last phase "
           f"{time.perf_counter() - began:.1f}", flush=True)
     chamfer["launches"] = counts_3d["chamfer_nearest"]

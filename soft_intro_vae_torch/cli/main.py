@@ -10,6 +10,15 @@ Devices: the port runs on CUDA unless told otherwise. ``threed`` and
 keep the reference's ``-c/--device`` and take ``cpu``, ``cuda``, or a CUDA
 index N (``cuda:N``). Without a GPU only ``cpu`` runs.
 
+Data parallelism: one process a card, started by torchrun, whose
+environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/MASTER_PORT) the CLI
+reads to join the process group (parallel/multihost.py; NCCL on the card,
+gloo for ``cpu``). The batch size is the global batch; ``--num_devices``,
+when given, must equal the number of ranks:
+
+    python -m torch.distributed.run --nproc_per_node N -m soft_intro_vae_torch.cli.main \
+        image -d cifar10 --num_devices N ...
+
 Usage:
     python -m soft_intro_vae_torch.cli.main image -d cifar10 -n 250 -z 128 -b 32 -e 256
     python -m soft_intro_vae_torch.cli.main bootstrap -d cifar10 -o 1 [-c 0]
@@ -22,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 
@@ -61,7 +71,10 @@ def _image_flags(p: argparse.ArgumentParser, gamma_r_default: float) -> None:
                         "weights on disk, logged as fid_selfconsistent)")
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--result_dir", type=str, default=None)
-    p.add_argument("--num_devices", type=int, default=None, help="not ported yet beyond 1")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data-parallel ranks, one a card; must equal the world size: "
+                        "python -m torch.distributed.run --nproc_per_node N -m "
+                        "soft_intro_vae_torch.cli.main image ... --num_devices N")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--scan-steps", type=int, default=1,
                    help="K train steps a call: a CUDA graph of one step replayed K times "
@@ -172,6 +185,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    import torch.distributed as dist
+
+    from soft_intro_vae_torch.parallel import multihost
+
+    joined = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined and args.command == "toy":
+        raise SystemExit("the 2D toy trainer runs in one process, with no data parallelism")
+    if joined:  # a rank started by torchrun
+        multihost.initialize_multihost(device=getattr(args, "device", "cuda"))
+    try:
+        _run(args)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _run(args):
     if args.command in ("image", "bootstrap"):
         _run_image(args, bootstrap=args.command == "bootstrap")
     elif args.command == "toy":

@@ -82,20 +82,25 @@ class ArrayDataset:
         return self.images.shape[0]
 
     def epoch(self, batch_size: int, shuffle: bool = True, drop_last: bool = False,
-              epoch_index: Optional[int] = None) -> Iterator[np.ndarray]:
+              epoch_index: Optional[int] = None,
+              rows: Optional[slice] = None) -> Iterator[np.ndarray]:
         """epoch_index, when given, seeds the shuffle/augment draws for this
         epoch deterministically (replay-identical resume — a resumed run at
         epoch E replays an uninterrupted run's exact batches); when None the
-        sequential internal stream is used (legacy behavior)."""
+        sequential internal stream is used (legacy behavior). ``rows``: yield
+        only those rows of each batch (a rank's, parallel/mesh.py), gathering
+        only them unless ``augment_fn`` must see the whole batch."""
         n = len(self)
         rng = self.rng if epoch_index is None else np.random.default_rng((self._seed, epoch_index))
         idx = rng.permutation(n) if shuffle else np.arange(n)
         end = n - (n % batch_size) if drop_last else n
         for i in range(0, end, batch_size):
-            batch = self.images[idx[i : i + batch_size]]
-            if self.augment_fn is not None:
-                batch = self.augment_fn(batch, rng)
-            yield batch
+            take = idx[i : i + batch_size]
+            if self.augment_fn is None:
+                yield self.images[take if rows is None else take[rows]]
+                continue
+            batch = self.augment_fn(self.images[take], rng)
+            yield batch if rows is None else batch[rows]
 
 
 class SyntheticImages(ArrayDataset):
@@ -255,20 +260,25 @@ class FolderDataset:
         return self._pool
 
     def epoch(self, batch_size: int, shuffle: bool = True, drop_last: bool = False,
-              epoch_index: Optional[int] = None) -> Iterator[np.ndarray]:
-        """Decode-on-demand epoch stream; seeding semantics identical to
-        ``ArrayDataset.epoch`` (replay-identical resume)."""
+              epoch_index: Optional[int] = None,
+              rows: Optional[slice] = None) -> Iterator[np.ndarray]:
+        """Decode-on-demand epoch stream; seeding semantics and ``rows``
+        identical to ``ArrayDataset.epoch`` (replay-identical resume)."""
         n = len(self)
         rng = self.rng if epoch_index is None else np.random.default_rng((self._seed, epoch_index))
         idx = rng.permutation(n) if shuffle else np.arange(n)
         end = n - (n % batch_size) if drop_last else n
         pool = self._ensure_pool()
         for i in range(0, end, batch_size):
-            paths = [self.files[j] for j in idx[i : i + batch_size]]
+            take = idx[i : i + batch_size]
+            if rows is not None and self.augment_fn is None:
+                take = take[rows]
+            paths = [self.files[j] for j in take]
             imgs = list(pool.map(self._decode, paths)) if pool else [self._decode(p) for p in paths]
             batch = np.stack(imgs)
             if self.augment_fn is not None:
                 batch = self.augment_fn(batch, rng)
+                batch = batch if rows is None else batch[rows]
             yield batch
 
 
@@ -316,9 +326,15 @@ def open_image_folder(
     return ArrayDataset(arr, seed=seed, augment_fn=augment_fn) if arr is not None else None
 
 
-def augment_mirror(batch: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-    """Random horizontal flip per image (dataset.py is_mirror semantics)."""
-    flip = rng.random(batch.shape[0]) < 0.5
+def augment_mirror(batch: np.ndarray, rng: np.random.Generator, rows: Optional[slice] = None,
+                   global_batch: Optional[int] = None) -> np.ndarray:
+    """Random horizontal flip per image (dataset.py is_mirror semantics).
+    With ``rows``, ``batch`` holds those rows of a global batch of
+    ``global_batch`` images: the flips are drawn for all of them, so every
+    rank's draws stay in step, and this batch takes its rows' flips."""
+    flip = rng.random(batch.shape[0] if rows is None else global_batch) < 0.5
+    if rows is not None:
+        flip = flip[rows]
     out = batch.copy()
     out[flip] = out[flip][:, :, ::-1, :]
     return out

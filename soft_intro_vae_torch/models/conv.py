@@ -36,6 +36,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from soft_intro_vae_torch.parallel.collectives import batch_norm
+from soft_intro_vae_torch.parallel.mesh import current_world
+
 Tensor = torch.Tensor
 
 
@@ -49,9 +52,14 @@ class Conv2d(nn.Conv2d):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d (momentum 0.1, eps 1e-5) that normalizes in float32 and
-    returns the input's dtype."""
+    returns the input's dtype. In train mode on the distributed route its
+    statistics are the global batch's (parallel/collectives.py); without a
+    process group it is PyTorch's (cuDNN's on the card)."""
 
     def forward(self, x: Tensor) -> Tensor:
+        world = current_world()
+        if self.training and world.active:
+            return batch_norm(x.float(), self, world).to(x.dtype)
         if x.dtype == torch.float32:
             return super().forward(x)
         return super().forward(x.float()).to(x.dtype)

@@ -18,10 +18,24 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from soft_intro_vae_torch.parallel.collectives import batch_norm
+from soft_intro_vae_torch.parallel.mesh import current_world
+
 Tensor = torch.Tensor
 
 CONV_CHANNELS = (64, 128, 256, 256, 512)
 HIDDEN = (64, 128, 512, 1024)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """nn.BatchNorm1d whose train-mode statistics are the global batch's on
+    the distributed route (parallel/collectives.py); PyTorch's otherwise."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        world = current_world()
+        if self.training and world.active:
+            return batch_norm(x, self, world)
+        return super().forward(x)
 
 
 class PointNetEncoder(nn.Module):
@@ -34,7 +48,7 @@ class PointNetEncoder(nn.Module):
         in_ch = 3
         for ch in CONV_CHANNELS:
             layers += [nn.Conv1d(in_ch, ch, 1, bias=False), nn.ReLU(inplace=True),
-                       nn.BatchNorm1d(ch, eps=1e-5, momentum=0.1)]
+                       BatchNorm1d(ch, eps=1e-5, momentum=0.1)]
             in_ch = ch
         self.conv = nn.Sequential(*layers)
         self.fc = nn.Sequential(nn.Linear(in_ch, 256), nn.ReLU(inplace=True))

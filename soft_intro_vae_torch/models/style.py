@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from soft_intro_vae_torch.models.lreq import LreqConv2d, LreqConvTranspose2d, LreqDense
 from soft_intro_vae_torch.ops.adain import bias_act_norm
+from soft_intro_vae_torch.parallel.mesh import randn_rows
 
 Tensor = torch.Tensor
 NOISE_MODES = ("batch", "batch_constant", "none")
@@ -135,9 +136,12 @@ class DecodeBlock(nn.Module):
             return y
         # the noise is drawn in f32 outside the kernel; "batch_constant" draws
         # one plane and broadcasts it over the batch (net.py:160-167)
+        # "batch" draws this rank's rows of the global batch's planes (parallel/mesh.py)
         b, _, h, wd = x.shape
-        rows = 1 if noise_mode == "batch_constant" else b
-        n = torch.randn((rows, h, wd), generator=generator, device=x.device, dtype=torch.float32)
+        if noise_mode == "batch_constant":
+            n = torch.randn((1, h, wd), generator=generator, device=x.device, dtype=torch.float32)
+        else:
+            n = randn_rows(b, (h, wd), generator=generator, device=x.device)
         y, _, _ = bias_act_norm(x, bias.view(-1), g, bst, n.expand(b, h, wd), nw.view(-1),
                                 mode="noise", eps=1e-8, impl=self.norm_impl)
         return y

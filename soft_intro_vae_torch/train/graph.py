@@ -32,16 +32,26 @@ A graph reads and writes the state's own tensors: parameters, BN buffers and
 Adam's moments and counts, updated in place. Whatever replaces one of them
 (``load_state_dict`` of an optimizer, a new state) leaves the graph stale;
 load checkpoints before the first call, and build new steps for a new state.
+
+Data parallelism (parallel/mesh.py): under NCCL the step's collectives (the
+gradient reduces, the BatchNorms' reduces, the metrics' reduce) are issued
+on the side stream in the warm-up steps, which start NCCL's communicator,
+and are captured with the rest of the step, so a replay runs them too. gloo
+cannot be captured: under gloo a K-step call runs K eager steps, as on the
+CPU, and says so once.
 """
 
 from __future__ import annotations
 
 import collections
+import warnings
 from typing import Callable, Dict, Tuple
 
 import torch
 
 from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, u8norm_cuda
+from soft_intro_vae_torch.parallel import collectives
+from soft_intro_vae_torch.parallel.mesh import current_world
 
 WARMUP_STEPS = 3
 
@@ -59,9 +69,13 @@ captures = 0
 
 
 def wrapper_counts() -> Dict[str, int]:
-    """Each hand-written kernel's wrapper count (ops/*_cuda.py ``launches``)."""
-    return {"chamfer_nearest": chamfer_cuda.launches, "bias_act_norm_fwd": adain_cuda.launches_fwd,
-            "bias_act_norm_bwd": adain_cuda.launches_bwd, "u8norm": u8norm_cuda.launches}
+    """Each hand-written kernel's wrapper count (ops/*_cuda.py ``launches``),
+    and each kind of collective's (``nccl_<kind>``, parallel/collectives.py)."""
+    counts = {"chamfer_nearest": chamfer_cuda.launches,
+              "bias_act_norm_fwd": adain_cuda.launches_fwd,
+              "bias_act_norm_bwd": adain_cuda.launches_bwd, "u8norm": u8norm_cuda.launches}
+    counts.update({f"nccl_{k}": collectives.calls[k] for k in collectives.KINDS})
+    return counts
 
 
 def _stack(metrics: Dict[str, torch.Tensor], names) -> torch.Tensor:
@@ -146,11 +160,17 @@ def k_steps(step: Callable) -> Callable:
     """``step(state, x)`` -> ``step(state, xs)`` over the K batches of
     ``xs`` (module doc): a CUDA graph on the card, K eager steps on the CPU."""
     graphed = GraphedStep(step)
+    said = []
 
     def run(state, xs: torch.Tensor):
         if xs.dim() < 2 or xs.shape[0] < 1:
             raise ValueError(f"a K-step takes (K, B, ...) batches, K >= 1; got {tuple(xs.shape)}")
-        if xs.is_cuda:
+        if xs.is_cuda and current_world().backend == "gloo":
+            if not said:
+                said.append(True)
+                warnings.warn("gloo collectives cannot be captured in a CUDA graph: each K-step "
+                              "call runs K eager steps", stacklevel=2)
+        elif xs.is_cuda:
             return graphed(state, xs)
         rows = []
         for x in xs:

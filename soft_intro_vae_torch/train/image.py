@@ -30,6 +30,14 @@ With ``scan_steps`` K > 1, K host batches go to the device as one (K, B, H,
 W, C) transfer, the last chunk of an epoch shorter where the batches run
 out, and one K-step call takes each chunk: a CUDA graph of one step replayed
 once a batch on the card, K eager steps on the CPU (train/graph.py).
+
+Data parallelism (parallel/): in a process group of N ranks (one a card,
+``python -m torch.distributed.run --nproc_per_node N``), ``batch_size`` is
+the global batch: every rank draws the same epoch permutation and takes its
+rows of each batch, the states start as rank 0's, the steps reduce their
+gradients, BN statistics and metrics, and rank 0 alone writes checkpoints,
+logs and figures and scores FID while the others wait. ``num_devices``, when
+set, must be the world size.
 """
 
 from __future__ import annotations
@@ -46,6 +54,9 @@ from soft_intro_vae_torch.data.images import (
     ImageSpec, SyntheticImages, augment_mirror, make_dataset, to_unit_float)
 from soft_intro_vae_torch.data.prefetch import device_prefetch, device_put_fn
 from soft_intro_vae_torch.models.conv import SoftIntroVAE
+from soft_intro_vae_torch.parallel.mesh import (
+    current_world, host_local_batch_size, shard_state, unsharded)
+from soft_intro_vae_torch.parallel.multihost import check_world, is_primary, on_primary
 from soft_intro_vae_torch.train import optim
 from soft_intro_vae_torch.train.state import TrainState
 from soft_intro_vae_torch.train.step import UNIT_LUT, StepConfig, build_train_steps
@@ -112,9 +123,7 @@ class ImageConfig:
 
 
 def _check_supported(cfg: ImageConfig) -> None:
-    if cfg.num_devices not in (None, 1) or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("data parallelism and multi-process runs are not ported yet "
-                                  "(ROADMAP.md Queue 1, item 11)")
+    check_world(cfg.num_devices, cfg.batch_size)
     if cfg.remat:
         raise NotImplementedError("activation checkpointing (remat) is not ported yet "
                                   "(ROADMAP.md Queue 1, item 13)")
@@ -158,7 +167,7 @@ def build_image_training(cfg: ImageConfig, spec: ImageSpec):
                           u8norm_impl=cfg.u8norm_impl)
     vanilla_step, intro_step = build_train_steps(cfg=step_cfg, scan_steps=cfg.scan_steps,
                                                  input_lut=UNIT_LUT, nhwc=True)
-    return state, vanilla_step, intro_step
+    return shard_state(state), vanilla_step, intro_step
 
 
 def fires(cur_iter: int, k: int, every: int) -> bool:
@@ -209,7 +218,7 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
         spec, dataset = make_dataset(cfg.dataset, cfg.data_root, seed=max(cfg.seed, 0),
                                      synthetic_fallback=cfg.synthetic_fallback,
                                      synthetic_n=cfg.synthetic_n, storage=cfg.host_storage)
-    if isinstance(dataset, SyntheticImages):
+    if isinstance(dataset, SyntheticImages) and is_primary():
         print("!" * 72)
         print(f"! WARNING: no local {cfg.dataset!r} data found — training on "
               f"SYNTHETIC images.\n! Metrics below are NOT {cfg.dataset} "
@@ -223,7 +232,11 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
                         prefix=f"{cfg.dataset}_soft_intro_betas_{cfg.beta_kl}_{cfg.beta_neg}_{cfg.beta_rec}_")
     tracker = LossTracker(cfg.result_dir)
     if cfg.pretrained:
-        load_pretrained(cfg.pretrained, state)
+        load_pretrained(cfg.pretrained, state)  # every rank reads it
+        shard_state(state)
+    world = current_world()  # checked by _check_supported
+    mine = world.rows(host_local_batch_size(cfg.batch_size, world))
+    verbose = cfg.verbose and is_primary()
     lr_e_sched = optim.multistep_lr(cfg.lr_e, (350,), 0.1)
     lr_d_sched = optim.multistep_lr(cfg.lr_d, (350,), 0.1)
     aug_seed = max(cfg.seed, 0) + 1  # per-epoch reseeded: a resumed run replays its draws
@@ -234,29 +247,31 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
     if cfg.with_fid:
         from soft_intro_vae_torch.metrics.fid import fid_weights_path, make_training_fid
 
-        fid_fn = make_training_fid(cfg)
+        fid_fn = make_training_fid(cfg) if is_primary() else None  # rank 0 scores
         if fid_weights_path() is None:
             # random-init Inception: self-consistent ordering, NOT comparable
             # to published FID (the reference loads the pt_inception weights,
             # metrics/inception.py:17,184-206)
             fid_name = "fid_selfconsistent"
-            print("!" * 72)
-            print("! WARNING: pt_inception weights not found — FID uses a "
-                  "RANDOM-INIT Inception.\n! The metric is logged as "
-                  "'fid_selfconsistent' and is NOT comparable to published "
-                  "FID.\n! Provide pt_inception-2015-12-05-6726825d.pth (see "
-                  "metrics/fid.py) for real FID.")
-            print("!" * 72)
+            if is_primary():
+                print("!" * 72)
+                print("! WARNING: pt_inception weights not found — FID uses a "
+                      "RANDOM-INIT Inception.\n! The metric is logged as "
+                      "'fid_selfconsistent' and is NOT comparable to published "
+                      "FID.\n! Provide pt_inception-2015-12-05-6726825d.pth (see "
+                      "metrics/fid.py) for real FID.")
+                print("!" * 72)
 
     summary = dict(best_fid=None, epochs_run=0, fid_metric=fid_name, steps=0, last_metrics={})
     cur_iter = 0
     start = time.time()
     for epoch in range(cfg.start_epoch, cfg.num_epochs):
-        if fid_fn is not None and (epoch == 0 or (epoch >= 100 and epoch % 20 == 0)
+        if cfg.with_fid and (epoch == 0 or (epoch >= 100 and epoch % 20 == 0)
                                    or epoch == cfg.num_epochs - 1):
             n = min(cfg.fid_num_images, len(dataset))
-            fid = fid_fn(state, dataset, num_images=n, batch_size=min(64, n))
-            if cfg.verbose:
+            # rank 0 alone; the others wait for its score
+            fid = on_primary(lambda: fid_fn(state, dataset, num_images=n, batch_size=min(64, n)))
+            if verbose:
                 print(f"epoch {epoch} {fid_name}: {fid:.3f}")
             tracker.update({fid_name: fid})
             if summary["best_fid"] is None or fid < summary["best_fid"]:
@@ -270,8 +285,10 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
             # (seed, epoch) seeding: shuffle and augment draws are a pure
             # function of the epoch, as in the JAX trainer
             aug_rng = np.random.default_rng((aug_seed, epoch))
-            for batch in dataset.epoch(cfg.batch_size, drop_last=True, epoch_index=epoch):
-                yield augment_mirror(batch, aug_rng) if cfg.mirror_augment else batch
+            for batch in dataset.epoch(cfg.batch_size, drop_last=True, epoch_index=epoch,
+                                       rows=mine):
+                yield (augment_mirror(batch, aug_rng, mine, cfg.batch_size) if cfg.mirror_augment
+                       else batch)
 
         def host_chunks():
             # scan_steps batches stacked into one (K, B, H, W, C) transfer; a
@@ -291,8 +308,9 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
             k = int(x.shape[0]) if scan else 1
             state, m = step_fn(state, x)
             device_metrics.append(m)
-            if cfg.save_figures and fires(cur_iter, k, cfg.test_iter):
-                _save_sample_grid(state, x[0] if scan else x, cfg, cur_iter)
+            if cfg.save_figures and fires(cur_iter, k, cfg.test_iter) and is_primary():
+                with unsharded():
+                    _save_sample_grid(state, x[0] if scan else x, cfg, cur_iter)
             if cfg.nan_check_iter and fires(cur_iter, k, cfg.nan_check_iter):
                 if not bool(torch.isfinite(torch.stack(list(m.values()))).all()):
                     raise SystemError("loss is NaN")
@@ -310,7 +328,7 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
             sync_target_decoder(state)
         state.set_lr(lr_e_sched(epoch + 1), lr_d_sched(epoch + 1))  # per epoch (:649-650)
         summary.update(epochs_run=epoch + 1, steps=cur_iter, last_metrics=ep_mean)
-        if cfg.verbose and ep_mean:
+        if verbose and ep_mean:
             keys = ("rec", "kl_real", "kl_fake", "kl_rec", "diff_kl")
             msg = ", ".join(f"{k}: {ep_mean[k]:.3f}" for k in keys if k in ep_mean)
             print(f"epoch {epoch}: {msg} ({time.time() - start:.1f}s)")

@@ -33,6 +33,13 @@ batch is normalized through ``input_lut`` (the canonical unit table selects
 the CUDA kernel of ops/u8norm.py), a float batch is taken as it is; either
 reaches the nets as the (B, C, H, W) view of its NHWC memory, channels-last,
 the layout the image nets run in (models/conv.py).
+
+Data parallelism (parallel/mesh.py): in a process group a step takes this
+rank's rows of the global batch. Its draws are this rank's rows of draws for
+the global batch (injected ``noises`` are global too), each phase's
+gradients are all-reduced once between ``backward()`` and the optimizer's
+step, the nets' BatchNorms take global statistics, and the metrics are the
+global means. Without a process group none of this runs.
 """
 
 from __future__ import annotations
@@ -54,6 +61,8 @@ from soft_intro_vae_torch.ops.losses import (
     reparameterize,
 )
 from soft_intro_vae_torch.ops.u8norm import u8_to_unit_nchw
+from soft_intro_vae_torch.parallel.collectives import GradReducer, all_reduce_metrics
+from soft_intro_vae_torch.parallel.mesh import local_rows, randn_rows
 from soft_intro_vae_torch.train.graph import k_steps
 from soft_intro_vae_torch.train.state import TrainState
 
@@ -177,11 +186,12 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
             raise ValueError("bootstrap=True needs a model with a target_decoder")
         return state.target_decoder
 
+    reduce_grads = GradReducer()
+
     def draw(state: TrainState, nv, name: str, b: int, scale: float = 1.0) -> Tensor:
         if name in nv:
-            return torch.as_tensor(nv[name], dtype=torch.float32, device=state.device)
-        return scale * torch.randn((b, cfg.z_dim), generator=state.generator,
-                                   device=state.device, dtype=torch.float32)
+            return local_rows(torch.as_tensor(nv[name], dtype=torch.float32, device=state.device), b)
+        return scale * randn_rows(b, (cfg.z_dim,), generator=state.generator, device=state.device)
 
     # ---------------- vanilla VAE warm-up step ----------------
     def vanilla_step(state: TrainState, x: Tensor, noises=None):
@@ -201,13 +211,15 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
         state.opt_e.zero_grad(set_to_none=True)
         state.opt_d.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_grads(list(enc.parameters()) + list(dec.parameters()))
         if cfg.bootstrap:
             for p in dec.parameters():  # zero gradients, as the JAX step feeds optax
                 p.grad = torch.zeros_like(p)
         state.opt_e.step()
         state.opt_d.step()
         state.step += 1
-        return state, dict(loss=loss.detach(), rec=loss_rec.detach(), kl_real=loss_kl.detach())
+        return state, all_reduce_metrics(
+            dict(loss=loss.detach(), rec=loss_rec.detach(), kl_real=loss_kl.detach()))
 
     # ---------------- introspective two-phase step ----------------
     def intro_step(state: TrainState, x: Tensor, noises=None):
@@ -248,6 +260,7 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
             expelbo_rec + expelbo_fake)
         state.opt_e.zero_grad(set_to_none=True)
         loss_e.backward()
+        reduce_grads(enc.parameters())
         state.opt_e.step()
 
         # ===================== D phase =====================
@@ -287,6 +300,7 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
         )
         state.opt_d.zero_grad(set_to_none=True)
         loss_d.backward()
+        reduce_grads(dec.parameters())
         state.opt_d.step()
         _trainable(enc, True)
         state.step += 1
@@ -304,7 +318,7 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
             expelbo_f=expelbo_fake.detach(),
             diff_kl=kl_fake - kl_real,
         )
-        return state, metrics
+        return state, all_reduce_metrics(metrics)
 
     if scan_steps > 1:
         return k_steps(vanilla_step), k_steps(intro_step)

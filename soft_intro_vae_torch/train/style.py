@@ -8,8 +8,15 @@ blend (:330-346), an EMA twin updated every step with beta =
 0.5^(batch/10000) (:399-401), checkpoints at epoch end, mid-epoch and at the
 end, with resume, and the CSV tracker.
 
-One device, no mesh. The YAML is read by ``utils/yaml_config.py`` (the GPU
-machine has no PyYAML). Images are fed NCHW: float batches are normalised on
+Data parallelism (parallel/): in a process group the LOD driver takes the
+world size and its ``LOD_2_BATCH_{N}GPU`` table (global batches); every rank
+takes its rows of each batch, its per-sample draws are its rows of draws for
+the global batch, the step reduces gradients, dlatent_avg's style mean and
+metrics, and rank 0 alone writes checkpoints, logs and figures and scores
+FID while the others wait. Without a process group: one device.
+
+The YAML is read by ``utils/yaml_config.py`` (the GPU machine has no
+PyYAML). Images are fed NCHW: float batches are normalised on
 the host (x / 127.5 - 1, as the JAX trainer does for float feeds and for
 every transition batch); uint8 batches go to the device as bytes and are
 normalised there by a 256-entry table lookup, exact for every byte.
@@ -18,8 +25,8 @@ scores the EMA generator by FID (metrics/fid.py) every ``fid_every`` epochs
 once the last LOD is reached, against the dataset at the LOD's resolution,
 and keeps the best-scoring state as a tagged checkpoint (the JAX trainer's
 train/style.py:378-430). Not ported yet, and raising
-``NotImplementedError`` naming their ROADMAP item: streaming TFRecords, data
-parallelism and activation checkpointing.
+``NotImplementedError`` naming their ROADMAP item: streaming TFRecords and
+activation checkpointing.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from soft_intro_vae_torch.parallel.mesh import current_world, shard_state, unsharded
+from soft_intro_vae_torch.parallel.multihost import check_world, is_primary, on_primary
 from soft_intro_vae_torch.train.lod import LODDriver, pick_batch_table
 from soft_intro_vae_torch.train.style_step import (
     StyleModel,
@@ -207,19 +216,23 @@ class MultiResImages:
                                 if u8 else cur.astype(np.float32))
         return self._cache[res]
 
-    def epoch(self, res: int, batch_size: int, epoch_index: Optional[int] = None):
+    def epoch(self, res: int, batch_size: int, epoch_index: Optional[int] = None,
+              rows: Optional[slice] = None):
         """One shuffled pass of whole batches. With ``epoch_index`` the
         shuffle and flips are a function of (seed, epoch_index), so a resumed
-        run replays the batches of an uninterrupted one."""
+        run replays the batches of an uninterrupted one. ``rows``: only those
+        rows of each batch (a rank's), their flips drawn for the whole batch."""
         data = self.at_resolution(res)
         rng = self.rng if epoch_index is None else np.random.default_rng(
             np.random.SeedSequence([self.seed, epoch_index]))
         n = data.shape[0]
         idx = rng.permutation(n)
         for i in range(0, n - n % batch_size, batch_size):
-            batch = data[idx[i: i + batch_size]]
+            take = idx[i: i + batch_size]
+            batch = data[take if rows is None else take[rows]]
             if self.flip:
-                flip = rng.random(batch.shape[0]) < 0.5
+                flip = rng.random(batch_size) < 0.5
+                flip = flip if rows is None else flip[rows]
                 batch = batch.copy()
                 batch[flip] = batch[flip][:, :, ::-1, :]
             yield batch
@@ -232,8 +245,7 @@ def _lr_for(cfg: StyleConfig, epoch: int, lod: int) -> float:
 
 def build_style_training(cfg: StyleConfig) -> Tuple[StyleModel, StyleTrainState]:
     """(model, state) on ``cfg.device``, the nets drawn from ``cfg.seed``."""
-    if cfg.num_devices not in (None, 1):
-        raise NotImplementedError("data parallelism is not ported yet (ROADMAP.md Queue 1, item 11)")
+    check_world(cfg.num_devices)  # each LOD's batch is checked when it starts
     if cfg.remat:
         raise NotImplementedError("activation checkpointing (TRAIN.REMAT) is not ported yet "
                                   "(ROADMAP.md Queue 1, item 13)")
@@ -251,7 +263,7 @@ def build_style_training(cfg: StyleConfig) -> Tuple[StyleModel, StyleTrainState]
         nets = model.make_nets()
     state = StyleTrainState.create(nets, device=device, seed=cfg.seed + 1,
                                    lr=cfg.base_learning_rate, beta2=cfg.adam_beta2)
-    return model, state
+    return model, shard_state(state)
 
 
 def make_style_dataset(cfg: StyleConfig) -> MultiResImages:
@@ -376,10 +388,12 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
         dataset = make_style_dataset(cfg)
 
     model, state = build_style_training(cfg)
+    world = current_world()
+    verbose = cfg.verbose and is_primary()
     tables = cfg.lod_2_batch_tables or {"1GPU": [128, 128, 128, 32, 16, 8, 4]}
     lod2batch = LODDriver(
-        lod_2_batch=pick_batch_table(tables, 1), epochs_per_lod=cfg.epochs_per_lod,
-        layer_count=cfg.layer_count, dataset_size=len(dataset), world_size=1,
+        lod_2_batch=pick_batch_table(tables, world.size), epochs_per_lod=cfg.epochs_per_lod,
+        layer_count=cfg.layer_count, dataset_size=len(dataset), world_size=world.size,
         report_freq=cfg.report_freq, snapshot_freq=cfg.snapshot_freq)
     ckpt = Checkpointer(os.path.join(cfg.output_dir, "training_artifacts"), prefix=cfg.name + "_")
     tracker = LossTracker(cfg.output_dir)
@@ -389,9 +403,10 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
     # next epoch, mid-epoch snapshots restart the interrupted epoch
     start_epoch = 0
     if cfg.resume:
-        loaded = ckpt.load_latest(state)
+        loaded = ckpt.load_latest(state)  # every rank reads it
         if loaded is not None:
             state, saved_epoch = loaded
+            shard_state(state)
             aux = ckpt.latest_aux() or {}
             start_epoch = saved_epoch + 1 if aux.get("epoch_completed", True) else saved_epoch
             # fast-forward the LOD driver without signalling an optimizer
@@ -401,7 +416,7 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
                 tracker.load_state_dict(aux["tracker"])
             summary["best_fid"] = aux.get("best_fid")
             summary["lods_seen"] = list(aux.get("lods_seen", []))
-            if cfg.verbose:
+            if verbose:
                 print(f"resumed from epoch {saved_epoch} (lod {lod2batch.lod}); "
                       f"starting at epoch {start_epoch}")
 
@@ -425,10 +440,11 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
     if cfg.with_fid:
         from soft_intro_vae_torch.metrics.fid import fid_weights_path
 
-        fid_fn = make_style_fid(model, cfg)
+        fid_fn = make_style_fid(model, cfg) if is_primary() else None  # rank 0 scores
         if fid_weights_path() is None:
             fid_name = "fid_selfconsistent"
-            print("! WARNING: pt_inception weights not found — style FID uses a "
+            if is_primary():
+                print("! WARNING: pt_inception weights not found — style FID uses a "
                   "RANDOM-INIT Inception;\n! logged as 'fid_selfconsistent', NOT "
                   "comparable to published FID.")
     summary["fid_metric"] = fid_name
@@ -447,10 +463,12 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
         res = model.layer_to_resolution[lod]
         state.set_lr(_lr_for(cfg, epoch, lod))
         state.ema_beta = 0.5 ** (batch / 10000.0)
-        if (fid_fn is not None and epoch > cfg.epochs_per_lod * (cfg.layer_count - 1)
+        if (cfg.with_fid and epoch > cfg.epochs_per_lod * (cfg.layer_count - 1)
                 and epoch % cfg.fid_every == 0):
-            fid = fid_fn(state, dataset, lod, batch_size=min(32, cfg.fid_num_images))
-            if cfg.verbose:
+            # rank 0 alone; the others wait for its score
+            fid = on_primary(lambda: fid_fn(state, dataset, lod,
+                                            batch_size=min(32, cfg.fid_num_images)))
+            if verbose:
                 print(f"epoch {epoch} {fid_name}: {fid:.2f}")
             tracker.update({fid_name: fid})
             if summary["best_fid"] is None or fid < summary["best_fid"]:
@@ -462,7 +480,9 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
         vanilla = epoch < cfg.num_vae
         device_metrics = []
         it = 0
-        for raw in dataset.epoch(res, batch, epoch_index=epoch):
+        check_world(cfg.num_devices, batch)
+        mine = world.rows(batch // world.size)
+        for raw in dataset.epoch(res, batch, epoch_index=epoch, rows=mine):
             blend = lod2batch.blend_factor_at(it)
             it += batch
             blended = lod2batch.in_transition and blend < 1.0 and lod > 0
@@ -476,8 +496,9 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
             if lod2batch.is_time_to_save():
                 # mid-epoch snapshot: resume restarts this epoch
                 ckpt.save(state, epoch, state.step, aux=aux(lod, False))
-            if cfg.save_figures and lod2batch.is_time_to_report():
-                _save_style_samples(model, cfg, state, lod, epoch, lod2batch.iteration)
+            if cfg.save_figures and lod2batch.is_time_to_report() and is_primary():
+                with unsharded():
+                    _save_style_samples(model, cfg, state, lod, epoch, lod2batch.iteration)
             # sub-epoch NaN abort: one small sync every nan_check_iter steps
             if cfg.nan_check_iter and len(device_metrics) % cfg.nan_check_iter == 0:
                 if not bool(torch.isfinite(torch.stack(list(m.values()))).all()):
@@ -495,7 +516,7 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
         summary["last_metrics"] = ep_mean
         # end-of-epoch checkpoint (reference model_tmp_lod%d, :425): the resume anchor
         ckpt.save(state, epoch, state.step, aux=aux(lod, True))
-        if cfg.verbose:
+        if verbose:
             shown = {k: round(v, 4) for k, v in ep_mean.items()
                      if k in ("rec_loss", "real_kl", "fake_kl", "kl_diff")}
             print(f"epoch {epoch} lod {lod} res {res} bs {batch}: {shown} "

@@ -17,6 +17,13 @@ noise (fresh prior noise per phase, as each reference ``generate`` samples its
 own z), style mixing, and the decoder's noise planes. A step's ``nz`` dict
 injects the latent draws by name instead (``NZ_KEYS``), as the JAX step's
 ``nz`` hook does.
+
+Data parallelism (parallel/mesh.py): in a process group every per-sample
+draw (latents, the mixing latents, the decoder's noise planes) is this
+rank's rows of a draw for the global batch, injected ``nz`` arrays are
+global, each phase's gradients are all-reduced once before its optimizer
+step, dlatent_avg follows the global style mean and the metrics are global
+means. Without a process group none of this runs.
 """
 
 from __future__ import annotations
@@ -40,6 +47,12 @@ from soft_intro_vae_torch.ops.losses import (
     per_sample_recon,
     reconstruction_loss,
 )
+from soft_intro_vae_torch.parallel.collectives import (
+    GradReducer,
+    all_reduce_metrics,
+    global_mean,
+)
+from soft_intro_vae_torch.parallel.mesh import local_rows, randn_rows
 from soft_intro_vae_torch.train.lreq_adam import LreqAdam
 
 Tensor = torch.Tensor
@@ -146,10 +159,10 @@ class StyleModel:
         avg = nets.dlatent_avg.buff
         if mc.dlatent_avg_beta is not None and update_avg:
             with torch.no_grad():
-                avg.add_((styles.mean(dim=0) - avg) * (1.0 - mc.dlatent_avg_beta))
+                avg.add_((global_mean(styles.mean(dim=0)) - avg) * (1.0 - mc.dlatent_avg_beta))
         layer_idx = torch.arange(self.num_layers, device=dev)[None, :, None]
         if mixing and mc.style_mixing_prob is not None:
-            z2 = torch.randn(z.shape, generator=generator, device=dev, dtype=torch.float32)
+            z2 = randn_rows(z.shape[0], z.shape[1:], generator=generator, device=dev)
             styles2 = nets.mapping_fl(z2)[:, :1].expand(-1, self.num_layers, -1)
             cur_layers = (lod + 1) * 2
             cutoff = torch.randint(1, cur_layers + 1, (), generator=generator, device=dev)
@@ -245,15 +258,17 @@ def build_style_steps(model: StyleModel, cfg: StyleStepConfig, lod: int, blended
     noise=True; "none": the deterministic correction, net.py:176-178).
     """
 
+    reduce_grads = GradReducer()
+
     def _b(blend):
         return float(blend) if blended else None
 
     def latents(state: StyleTrainState, nz, names, b: int):
         if nz is not None:
-            return [torch.as_tensor(nz[k], dtype=torch.float32, device=state.device)
+            return [local_rows(torch.as_tensor(nz[k], dtype=torch.float32, device=state.device), b)
                     for k in names]
-        return [torch.randn((b, cfg.latent_size), generator=state.generator, device=state.device,
-                            dtype=torch.float32) for _ in names]
+        return [randn_rows(b, (cfg.latent_size,), generator=state.generator, device=state.device)
+                for _ in names]
 
     def generate(state, z, blend, mixing):
         return model.generate(state.nets, state.generator, lod, _b(blend), z, mixing=mixing,
@@ -274,12 +289,13 @@ def build_style_steps(model: StyleModel, cfg: StyleStepConfig, lod: int, blended
         state.opt_e.zero_grad()
         state.opt_d.zero_grad()
         loss.backward()
+        reduce_grads(nets.parameters())
         state.opt_e.step()
         state.opt_d.step()
         _finish(state)
         loss = loss.detach()
-        return state, dict(loss_e=loss, loss_d=loss, rec_loss=loss_rec.detach(),
-                           real_kl=loss_kl.detach())
+        return state, all_reduce_metrics(dict(loss_e=loss, loss_d=loss, rec_loss=loss_rec.detach(),
+                                              real_kl=loss_kl.detach()))
 
     def intro_step(state: StyleTrainState, x: Tensor, blend: float = 1.0, nz=None):
         nets = state.nets
@@ -308,6 +324,7 @@ def build_style_steps(model: StyleModel, cfg: StyleStepConfig, lod: int, blended
                   + 0.25 * (expelbo_rec + expelbo_fake))
         state.opt_e.zero_grad()
         loss_e.backward()
+        reduce_grads(nets.params_e())
         state.opt_e.step()
 
         # ===== D phase (model.py:265-299): the updated encoder, fresh forwards =====
@@ -329,15 +346,16 @@ def build_style_steps(model: StyleModel, cfg: StyleStepConfig, lod: int, blended
                               + cfg.gamma_r * 0.5 * cfg.beta_rec * (loss_rec_rec + loss_fake_rec))
         state.opt_d.zero_grad()
         loss_d.backward()
+        reduce_grads(nets.params_d())
         state.opt_d.step()
         _trainable(nets.params_e(), True)
         _finish(state)
 
         kl_real, kl_fake = kl_real.detach(), kl_fake.detach()
-        return state, dict(loss_e=loss_e.detach(), loss_d=loss_d.detach(),
-                           rec_loss=loss_rec.detach(), real_kl=kl_real, fake_kl=kl_fake,
-                           kl_diff=kl_fake - kl_real, expelbo_r=expelbo_rec.detach(),
-                           expelbo_f=expelbo_fake.detach())
+        return state, all_reduce_metrics(dict(
+            loss_e=loss_e.detach(), loss_d=loss_d.detach(), rec_loss=loss_rec.detach(),
+            real_kl=kl_real, fake_kl=kl_fake, kl_diff=kl_fake - kl_real,
+            expelbo_r=expelbo_rec.detach(), expelbo_f=expelbo_fake.detach()))
 
     def _finish(state: StyleTrainState) -> None:
         ema_update(state.ema, state.nets, state.ema_beta)

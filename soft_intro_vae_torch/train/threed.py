@@ -10,6 +10,12 @@ state (:444-449) and resume from the latest epoch (:191-198).
 The per-epoch shuffle is ``np.random.default_rng((seed + 2, epoch))``, as in
 the JAX trainer, so both packages see the same batches. Step metrics stay on
 the device and are fetched once per epoch (and every ``nan_check_iter`` steps).
+
+Data parallelism (parallel/): in a process group ``batch_size`` is the
+global batch and every rank gathers its rows of each batch from the
+device-resident set (rotation angles drawn for the whole batch), as the
+image trainer does (train/image.py); the valid JSD, figures and checkpoints
+are rank 0's, and every rank resumes from the same checkpoint.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ import torch
 from soft_intro_vae_torch.data.shapenet import ShapeNetDataset, SyntheticClouds, rotate_z
 from soft_intro_vae_torch.metrics.jsd import jsd_between_point_cloud_sets
 from soft_intro_vae_torch.models.pointnet import SoftIntroVAE3D
+from soft_intro_vae_torch.parallel.mesh import current_world, host_local_batch_size, shard_state
+from soft_intro_vae_torch.parallel.multihost import check_world, is_primary, on_primary
 from soft_intro_vae_torch.train import optim
 from soft_intro_vae_torch.train.state import TrainState
 from soft_intro_vae_torch.train.step import StepConfig, build_train_steps
@@ -110,8 +118,7 @@ def build_3d_training(cfg: ThreeDConfig, scan_steps: int = 1):
     ``scan_steps`` K > 1 the steps take (K, B, N, 3) clouds (train/graph.py)."""
     if cfg.reconstruction_loss.lower() != "chamfer":
         raise ValueError(f"Invalid reconstruction loss. Accepted `chamfer`, got: {cfg.reconstruction_loss}")
-    if cfg.num_devices not in (None, 1):
-        raise NotImplementedError("data parallelism is not ported yet (ROADMAP.md Queue 1, item 11)")
+    check_world(cfg.num_devices, cfg.batch_size)
     device = resolve_device(cfg.device)
     seed = cfg.seed if cfg.seed != -1 else int(time.time()) % (2**31)
     # the nets are made from the seed without touching the global RNG
@@ -134,7 +141,7 @@ def build_3d_training(cfg: ThreeDConfig, scan_steps: int = 1):
         chamfer_impl=cfg.chamfer_impl,
     )
     vanilla_step, intro_step = build_train_steps(cfg=step_cfg, scan_steps=scan_steps)
-    return state, vanilla_step, intro_step
+    return shard_state(state), vanilla_step, intro_step
 
 
 @torch.no_grad()
@@ -197,6 +204,9 @@ def train_soft_intro_vae_3d(cfg: ThreeDConfig):
 
     state, vanilla_step, intro_step = build_3d_training(cfg)
     device = state.device
+    world = current_world()
+    mine = world.rows(host_local_batch_size(cfg.batch_size, world))
+    verbose = cfg.verbose and is_primary()
     ckpt = Checkpointer(os.path.join(cfg.results_dir, "weights"))
     tracker = LossTracker(cfg.results_dir)
     lr_e_sched = optim.multistep_lr(cfg.lr_e, (350, 450, 550), 0.5)
@@ -206,11 +216,12 @@ def train_soft_intro_vae_3d(cfg: ThreeDConfig):
 
     starting_epoch = 1
     if cfg.resume:
-        latest = ckpt.load_latest(state)
+        latest = ckpt.load_latest(state)  # every rank reads it
         if latest is not None:
             state, ep = latest
+            shard_state(state)
             starting_epoch = ep + 1
-            if cfg.verbose:
+            if verbose:
                 print(f"resumed from epoch {ep}")
 
     # the training set lives on the device; batches are gathered there
@@ -226,11 +237,13 @@ def train_soft_intro_vae_3d(cfg: ThreeDConfig):
         idx_dev = torch.from_numpy(idx).to(device)
         device_metrics = []
         for i in range(0, n - bs + 1, bs):
+            # this rank's rows of the global batch (all of it off the distributed route)
             if cfg.apply_random_rotation:
-                x = torch.from_numpy(rotate_z(train_pts[idx[i : i + bs]],
-                                              data_rng.random(bs) * 180.0)).to(device)
+                angles = data_rng.random(bs) * 180.0
+                x = torch.from_numpy(rotate_z(train_pts[idx[i : i + bs][mine]],
+                                              angles[mine])).to(device)
             else:
-                x = train_dev[idx_dev[i : i + bs]]
+                x = train_dev[idx_dev[i : i + bs][mine]]
             state, m = step_fn(state, x)
             device_metrics.append(m)
             # sub-epoch NaN abort: one small sync every nan_check_iter steps
@@ -243,15 +256,16 @@ def train_soft_intro_vae_3d(cfg: ThreeDConfig):
         if any(np.isnan(v) for v in ep_mean.values()):
             raise SystemError("loss is NaN")
         state.set_lr(lr_e_sched(epoch), lr_d_sched(epoch))
-        if cfg.verbose and ep_mean:
+        if verbose and ep_mean:
             shown = {k: round(v, 3) for k, v in ep_mean.items() if k in ("rec", "kl_real", "kl_fake", "diff_kl")}
             print(f"epoch {epoch}: {shown}")
-        if cfg.save_figures:
+        if cfg.save_figures and is_primary():
             _save_epoch_panel(state, train_pts, cfg, epoch)
 
         if epoch % cfg.valid_frequency == 0:
-            jsd = calc_jsd_valid(state, valid_pts, cfg)
-            if cfg.verbose:
+            # rank 0 alone; the others wait for its score
+            jsd = on_primary(lambda: calc_jsd_valid(state, valid_pts, cfg))
+            if verbose:
                 print(f"epoch: {epoch}, jsd: {jsd:.4f}")
             if best["jsd"] is None or jsd < best["jsd"]:
                 best.update(epoch=epoch, jsd=jsd)

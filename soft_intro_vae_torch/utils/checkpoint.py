@@ -21,6 +21,11 @@ LODs seen, whether the epoch completed) written to a ``.aux.json`` sidecar,
 as the JAX Checkpointer writes it (the reference Checkpointer's auxiliary
 dict, checkpointer.py:23-36). Saves are synchronous: the state lives on the
 device, and copying it to the host is most of a save's work.
+
+In a process group only rank 0 writes (the JAX package's
+utils/checkpoint.py:119 and ``multihost.is_primary``); every rank loads, and
+a checkpoint written under N ranks resumes under M: the state is the same
+on every rank.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from soft_intro_vae_torch.parallel.multihost import is_primary
+
 
 class Checkpointer:
     POINTER = "last_checkpoint"
@@ -39,7 +46,8 @@ class Checkpointer:
     def __init__(self, directory: str, prefix: str = ""):
         self.directory = directory
         self.prefix = prefix
-        os.makedirs(directory, exist_ok=True)
+        if is_primary():
+            os.makedirs(directory, exist_ok=True)
 
     def _path(self, epoch: int, iteration: int, tag: str = "") -> str:
         name = f"{self.prefix}model_epoch_{epoch}_iter_{iteration}{tag}.ckpt"
@@ -48,6 +56,8 @@ class Checkpointer:
     def save(self, state: Any, epoch: int, iteration: int = 0, tag: str = "",
              aux: Optional[dict] = None) -> str:
         path = self._path(epoch, iteration, tag)
+        if not is_primary():
+            return path
         payload = {**state.state_dict(), "epoch": epoch, "iteration": iteration}
         tmp = path + ".tmp"
         torch.save(payload, tmp)

@@ -7,7 +7,8 @@ trainer's sample scatter and VAE density (train_soft_intro_vae_2d.py:
 232-258,662-699) and the 3D trainer's real / reconstruction / sample panel
 (train_soft_intro_vae_3d.py:396-426). matplotlib is imported lazily with
 the Agg backend; each function is a no-op returning None where matplotlib is
-missing, as on the card's machine.
+missing, as on the card's machine, and off rank 0 of a process group: only
+rank 0 writes figures.
 """
 
 from __future__ import annotations
@@ -17,8 +18,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from soft_intro_vae_torch.parallel.multihost import is_primary
+
 
 def _plt():
+    if not is_primary():
+        return None
     try:
         import matplotlib
 

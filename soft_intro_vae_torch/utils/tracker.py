@@ -5,7 +5,7 @@ Capability parity with the style variant's LossTracker
 accumulators, ``register_means(epoch)`` appends a row and rewrites log.csv.
 ``plot()`` is a no-op returning None without matplotlib (the card's machine
 has none). Call ``update`` with already-fetched (host) metrics to avoid
-per-iteration device syncs.
+per-iteration device syncs. In a process group only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import csv
 import os
 from collections import OrderedDict
 from typing import Dict, List, Mapping
+
+from soft_intro_vae_torch.parallel.multihost import is_primary
 
 
 class RunningMean:
@@ -41,7 +43,8 @@ class LossTracker:
         self.means: "OrderedDict[str, RunningMean]" = OrderedDict()
         self.history: Dict[str, List[float]] = OrderedDict()
         self.epochs: List[int] = []
-        os.makedirs(output_dir, exist_ok=True)
+        if is_primary():
+            os.makedirs(output_dir, exist_ok=True)
 
     def update(self, metrics: Mapping[str, float]):
         for k, v in metrics.items():
@@ -61,6 +64,8 @@ class LossTracker:
         self._write_csv()
 
     def _write_csv(self):
+        if not is_primary():
+            return
         path = os.path.join(self.output_dir, self.filename)
         keys = list(self.history.keys())
         with open(path, "w", newline="") as f:
@@ -73,7 +78,10 @@ class LossTracker:
         return self.means[key].mean() if key in self.means else float("nan")
 
     def plot(self, filename: str = "plot.png"):
-        """The loss curves as one figure; the path, or None without matplotlib."""
+        """The loss curves as one figure; the path, or None without matplotlib
+        or off rank 0."""
+        if not is_primary():
+            return None
         try:
             import matplotlib
 
@@ -96,6 +104,8 @@ class LossTracker:
         import pickle
 
         path = os.path.join(self.output_dir, filename)
+        if not is_primary():
+            return path
         with open(path, "wb") as fp:
             pickle.dump(self.history, fp)
         return path

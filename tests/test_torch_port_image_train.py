@@ -191,9 +191,12 @@ def test_sample_grids_and_the_no_matplotlib_rule(tmp_path, monkeypatch):
 ])
 def test_options_of_later_slices_raise(tmp_path, field, value, item):
     cfg = _cfg(tmp_path, **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
+    # item 11 (data parallelism) is ported: num_devices must be the world size
+    err, match = ((ValueError, "num_devices=2 but the world has 1") if field == "num_devices"
+                  else (NotImplementedError, f"ROADMAP.md Queue 1, {item}"))
+    with pytest.raises(err, match=match):
         train_soft_intro_vae(cfg, ArrayDataset(_u8(4)), SPEC)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
+    with pytest.raises(err, match=match):
         build_image_training(cfg, SPEC)
 
 

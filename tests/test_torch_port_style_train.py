@@ -155,7 +155,10 @@ def test_entry_points_default_to_cuda(tmp_path):
                                     dict(use_synthetic=False, dataset_path="r%02d.tfrecords")],
                          ids=["data-parallel", "remat", "tfrecords"])
 def test_unported_options_name_their_roadmap_item(tmp_path, change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # data parallelism is ported: num_devices must be the world size
+    err, match = ((ValueError, "num_devices=2 but the world has 1") if "num_devices" in change
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(err, match=match):
         train_style_soft_intro_vae(_cfg(tmp_path, **change))
 
 

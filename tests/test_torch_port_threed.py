@@ -124,7 +124,8 @@ def test_cuda_default_entry_points_raise_without_a_gpu(tmp_path, monkeypatch):
 
 
 def test_options_of_later_slices_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # data parallelism is ported: num_devices must be the world size
+    with pytest.raises(ValueError, match="num_devices=2 but the world has 1"):
         build_3d_training(_cfg(tmp_path, num_devices=2))
     with pytest.raises(ValueError, match="chamfer"):
         build_3d_training(_cfg(tmp_path, reconstruction_loss="mse"))
