@@ -37,6 +37,19 @@ Phases, each printing one line; any failure exits non-zero:
   7. routes style: one f32 intro step through the kernels against one
               through the plain version, from the same weights and draws;
   8. transition style: LOD 0 -> 1 through a blended epoch;
+  8b. stream: the port's prepare_tfrecords writes 16 seeded 256x256 images as
+              per-LOD shards (levels 2-8, 2 parts); the native reader (built
+              with g++ from soft_intro_vae_torch/native/) and the Python
+              reader both return the source images and their box cascade bit
+              for bit; ``train_style_soft_intro_vae`` from the shards
+              (configs/ffhq256.yaml, two-field DATASET.PATH, PART_COUNT 2,
+              SIZE 16) at LOD 6, one vanilla and one intro epoch, fused-norm
+              launches held to the steps'; intro ms/step fed from the shards
+              and from the same images in memory; then 128 images at level 8
+              only: each reader's records/s and MB/s a pass over them, and at
+              LODs 0-2 one batch of 128 box-downscaled on the host, held to
+              the box-downscaled images up to flips, its host ms against the
+              LOD's intro step's ms and device busy time;
   9. kernels u8norm: the uint8 NHWC -> f32 normalize (NHWC memory, returned
               as (B, C, H, W) with channels-last strides) bit-equal to its
               plain version and to numpy for all 256 byte values and at the
@@ -94,8 +107,9 @@ The second-to-last lines are the kernels' JSON record and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Writes only inside the
-checkout: soft_intro_vae_torch/_build/ (the kernels) and temporary
-results_chip_smoke_*/ directories (the trainers' output, removed at the end).
+checkout: soft_intro_vae_torch/_build/ (the kernels and the native TFRecord
+reader) and temporary results_chip_smoke_*/ directories (the trainers'
+output and the shards, removed at the end).
 """
 
 from __future__ import annotations
@@ -1040,6 +1054,232 @@ def phase_style_transition(device, results_dir: str):
           f"{time.perf_counter() - t0:.2f} s; loss_e {last['loss_e']:.6g}", flush=True)
 
 
+# the stream phase: per-LOD TFRecord shards written by the port's
+# prepare_tfrecords, read back by both readers, and the style trainer fed from them
+STREAM_N = 16          # 256x256 images at levels 2-8: 4 steps of batch 4 an epoch at LOD 6
+STREAM_PARTS = 2
+STREAM_HOST_N = 128    # images at level 8 only: one batch of 128 at LODs 0-2, box-downscaled
+STREAM_HOST_LODS = (0, 1, 2)  # the 1GPU table's batch-128 LODs
+STREAM_READ_PASSES = {"native": 5, "python": 1}  # timed passes over the 128 level-8 records
+STREAM_PATTERN = "ffhq-r%02d.tfrecords.%03d"
+
+
+def _box_cascade(images, level: int, round_each: bool = True):
+    """Each level's images from the source bytes: 2x2 box means in float32,
+    rounded to uint8 at every level (the writer) or once at the end (the
+    streaming reader's downscale of max-level records)."""
+    import numpy as np
+
+    def u8(x):
+        return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+
+    out = {level: images}
+    cur = images.astype(np.float32)
+    while level > 2:
+        b, h, w, c = cur.shape
+        cur = cur.reshape(b, h // 2, 2, w // 2, 2, c).mean(axis=(2, 4))
+        if round_each:
+            cur = u8(cur).astype(np.float32)
+        level -= 1
+        out[level] = u8(cur)
+    return out
+
+
+def _reader_rates(paths, impl: str, passes: int):
+    """(records/s, MB/s) of ``TFRecordFile.examples`` over ``paths``, one pair a pass."""
+    from soft_intro_vae_torch.data.tfrecords import TFRecordFile
+
+    size = sum(os.path.getsize(p) for p in paths)
+    rates = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        n = sum(1 for p in paths for _ in TFRecordFile(p, impl=impl).examples())
+        dt = time.perf_counter() - t0
+        rates.append((n / dt, size / dt / 1e6))
+    return rates
+
+
+def _spread(values, fmt: str = ".1f") -> str:
+    """'lo-hi' of ``values``."""
+    return f"{min(values):{fmt}}-{max(values):{fmt}}"
+
+
+def _rows_match_up_to_flips(batch, images) -> bool:
+    """Whether the rows of ``batch`` are ``images`` in some order, each as it
+    is or mirrored left to right."""
+    index = {}
+    for i, img in enumerate(images):
+        index[img.tobytes()] = i
+        index[img[:, ::-1].tobytes()] = i
+    found = sorted(index.get(row.tobytes(), -1) for row in batch)
+    return found == list(range(len(images)))
+
+
+def _fed_ms_step(intro, state, feed, batches, windows: int = TIMED_WINDOWS, steps: int = 5):
+    """ms per intro step with each batch taken from ``batches()`` (a fresh
+    iterator of host batches) and fed through ``feed``: median of windows of
+    ``steps`` steps after 3 warm-up steps."""
+    import torch
+
+    def stream():
+        while True:
+            yield from batches()
+
+    it = stream()
+    for _ in range(3):
+        state, m = intro(state, feed(next(it), 1.0, False))
+    times = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = intro(state, feed(next(it), 1.0, False))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+    check(all(math.isfinite(float(v)) for v in m.values()), "non-finite loss in the fed steps")
+    return sorted(times)[len(times) // 2], times
+
+
+def phase_stream(device, card: str, results_dir: str, resident_ms: float):
+    """Shards written and read by both readers, the style trainer fed from
+    them at LOD 6, and the max-level route's host time at LOD 0."""
+    import numpy as np
+    import torch
+
+    from soft_intro_vae_torch.cli.prepare_tfrecords import write_multires_shards
+    from soft_intro_vae_torch.data.streaming import StreamingTFRecords
+    from soft_intro_vae_torch.data.tfrecords import load_uint8_images
+    from soft_intro_vae_torch.train.style import (
+        MultiResImages, _Feed, build_style_training, train_style_soft_intro_vae)
+    from soft_intro_vae_torch.train.style_step import StyleStepConfig, build_style_steps
+    from tools.torch_profile_toy import profile_iterations
+
+    # 1. shards at levels 2-8 from seeded images
+    rng = np.random.default_rng(11)
+    images = rng.integers(0, 256, (STREAM_N, 256, 256, 3), dtype=np.uint8)
+    shards = os.path.join(results_dir, "shards")
+    t0 = time.perf_counter()
+    paths = write_multires_shards(images, shards, "ffhq", 8, min_level=2, parts=STREAM_PARTS)
+    write_s = time.perf_counter() - t0
+    check(len(paths) == 7 * STREAM_PARTS, f"{len(paths)} shard files")
+
+    # 2. both readers, bit-equal to the source images and their box cascade
+    want = _box_cascade(images, 8)
+    for level in range(2, 9):
+        for part in range(STREAM_PARTS):
+            path = os.path.join(shards, STREAM_PATTERN % (level, part))
+            for impl in ("native", "python"):
+                got = load_uint8_images([path], impl=impl)
+                check(np.array_equal(got, want[level][part::STREAM_PARTS]),
+                      f"{impl} reader: {os.path.basename(path)} differs from the source images")
+    # the reader rates over the max-level route's 128 level-8 records (step 4)
+    host_dir = os.path.join(results_dir, "top")
+    top_images = rng.integers(0, 256, (STREAM_HOST_N, 256, 256, 3), dtype=np.uint8)
+    top = write_multires_shards(top_images, host_dir, "ffhq", 8, min_level=8, parts=STREAM_PARTS)
+    rates = {impl: _reader_rates(top, impl, passes) for impl, passes in STREAM_READ_PASSES.items()}
+
+    # 3. the trainer from the shards: ffhq256 width, LOD 6, one vanilla and one intro epoch
+    pattern = os.path.join(shards, STREAM_PATTERN)
+    run_dir = os.path.join(results_dir, "run")
+    cfg = style_config(device, run_dir, [
+        "DATASET.PATH", pattern, "DATASET.PART_COUNT", str(STREAM_PARTS),
+        "DATASET.SIZE", str(STREAM_N), "TRAIN.EPOCHS_PER_LOD", "0", "TRAIN.TRAIN_EPOCHS", "2"])
+    batch = cfg.lod_2_batch_tables["1GPU"][cfg.layer_count - 1]
+    steps = STREAM_N // batch
+    reset_counts()
+    t0 = time.perf_counter()
+    state, summary = train_style_soft_intro_vae(cfg)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    want_fwd, want_bwd = style_step_launches(cfg.layer_count - 1, steps, steps)
+    check(counts["bias_act_norm_fwd"] == want_fwd and counts["bias_act_norm_bwd"] == want_bwd,
+          f"streamed style run: fused-norm launches {counts}, expected {want_fwd} / {want_bwd}")
+    check(summary["steps"] == 2 * steps == state.step, f"streamed style run: {summary['steps']} steps")
+    last = summary["last_metrics"]
+    check(all(math.isfinite(v) for v in last.values()), f"non-finite streamed metrics: {last}")
+    final = os.path.join(run_dir, "training_artifacts",
+                         f"{cfg.name}_model_epoch_1_iter_{2 * steps}_final.ckpt")
+    check(os.path.exists(final), f"no final checkpoint at {final}")
+    del state
+
+    # intro steps fed from the shards against the same images held in memory
+    lod = cfg.layer_count - 1
+    model, state = build_style_training(cfg)
+    scfg = StyleStepConfig(latent_size=cfg.latent_space_size, beta_rec=cfg.beta_rec,
+                           beta_kl=cfg.beta_kl, beta_neg=float(cfg.beta_neg[lod]),
+                           scale=cfg.scale)
+    _, intro = build_style_steps(model, scfg, lod, False)
+    feed = _Feed(device)
+    streamed = StreamingTFRecords(pattern, STREAM_PARTS, STREAM_N, 8, seed=0, storage="uint8")
+    in_memory = MultiResImages(images, seed=0, storage="uint8")
+    res = model.layer_to_resolution[lod]
+    ms_stream, w_stream = _fed_ms_step(intro, state, feed, lambda: streamed.epoch(res, batch))
+    ms_memory, w_memory = _fed_ms_step(intro, state, feed, lambda: in_memory.epoch(res, batch))
+    del state, intro, model
+    torch.cuda.empty_cache()
+
+    # 4. the max-level route: level-8 shards only, LODs 0-2 at batch 128; each
+    # batch holds every image once, shuffled, each as it is or mirrored
+    top_stream = StreamingTFRecords(os.path.join(host_dir, STREAM_PATTERN), STREAM_PARTS,
+                                    STREAM_HOST_N, 8, seed=0, storage="uint8")
+    check(sorted(top_stream.filenames) == [8], f"levels {sorted(top_stream.filenames)}")
+    small = _box_cascade(top_images, 8, round_each=False)
+    model, state = build_style_training(cfg)
+    holder = {"state": state}
+    host = {}
+    for lod in STREAM_HOST_LODS:
+        side = 4 * 2 ** lod
+        host_times = []
+        for epoch in range(3):
+            t0 = time.perf_counter()
+            got = list(top_stream.epoch(side, STREAM_HOST_N, epoch_index=epoch))
+            host_times.append((time.perf_counter() - t0) * 1e3)
+            check(len(got) == 1 and got[0].shape == (STREAM_HOST_N, side, side, 3),
+                  f"max-level route at LOD {lod}: {[b.shape for b in got]}")
+            check(_rows_match_up_to_flips(got[0], small[lod + 2]),
+                  f"max-level route at LOD {lod}: the batch is not the box-downscaled images "
+                  f"up to flips")
+        _, intro_lod = build_style_steps(
+            model, dataclasses.replace(scfg, beta_neg=float(cfg.beta_neg[lod])), lod, False)
+        x = feed(got[0], 1.0, False)
+
+        def lod_step():
+            holder["state"], _ = intro_lod(holder["state"], x)
+
+        prof = profile_iterations(lod_step, iters=3, warmup=2)
+        host[lod] = (sorted(host_times)[1], host_times, prof)
+        del intro_lod, x
+    del holder, state, model
+    torch.cuda.empty_cache()
+
+    def route(lod):
+        host_ms, times, prof = host[lod]
+        bound = ("the host feed bounds the step" if host_ms > prof["ms_iter"]
+                 else "the host feed stays under the step")
+        return (f"LOD {lod}: host {host_ms:.3f} ms a batch "
+                f"({'/'.join(f'{t:.3f}' for t in times)}) against the intro step's "
+                f"{prof['ms_iter']:.3f} ms/step, device busy {prof['busy_ms_iter']:.3f} ms/step "
+                f"(idle {prof['idle_share_untraced']:.1%}): {bound}")
+    print(f"stream: {STREAM_N} images at levels 2-8 in {STREAM_PARTS} parts written in "
+          f"{write_s:.2f} s, both readers bit-equal to the source images at every level; "
+          f"reads of the {STREAM_HOST_N} level-8 records, a pass each: native "
+          f"{_spread([r for r, _ in rates['native']])} records/s "
+          f"{_spread([m for _, m in rates['native']])} MB/s over {len(rates['native'])} "
+          f"passes, python {_spread([r for r, _ in rates['python']])} records/s "
+          f"{_spread([m for _, m in rates['python']], '.2f')} MB/s over "
+          f"{len(rates['python'])} passes; style from shards (ffhq256 width, LOD 6, batch "
+          f"{batch}, bf16): {steps} vanilla + {steps} intro steps in {run_s:.2f} s, "
+          f"bias_act_norm launches fwd {counts['bias_act_norm_fwd']} / bwd "
+          f"{counts['bias_act_norm_bwd']} (expected {want_fwd} / {want_bwd}), loss_e "
+          f"{last['loss_e']:.6g}; intro ms/step streamed {ms_stream:.3f} "
+          f"({'/'.join(f'{w:.3f}' for w in w_stream)}), in memory {ms_memory:.3f} "
+          f"({'/'.join(f'{w:.3f}' for w in w_memory)}), device-resident batches "
+          f"{resident_ms:.3f} (step style); max-level route (level 8 only, batch "
+          f"{STREAM_HOST_N}): {'; '.join(route(lod) for lod in STREAM_HOST_LODS)}; on {card}",
+          flush=True)
+
+
 # the image slice: the CIFAR-10 recipe (bench.py's ImageSpec, z 128, batch 32,
 # beta_rec/beta_kl/beta_neg 1/1/256, f32) on a uint8 dataset made from a seed
 IMAGE_N = 2080         # images: 65 steps of batch 32 an epoch, 8 chunks of 8 and one of 1
@@ -1214,10 +1454,11 @@ def image_ms_step(cfg, spec, ds, device, scan: int, trace=layout_transposes):
     """ms per intro step after warm-up at ``scan_steps`` = ``scan``, resident
     uint8 batches (a chunk of ``scan`` at scan > 1): (median, windows,
     ``trace(prof, steps)``), each window 16 steps; at scan > 1 the trace is
-    a torch.profiler pass over two calls of graph replays (by default the
-    layout transposes a step, ``layout_transposes``), else None."""
+    a torch.profiler pass over two calls of graph replays after one under
+    its warm-up cycle (by default the layout transposes a step,
+    ``layout_transposes``), else None."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from soft_intro_vae_torch.train.image import build_image_training
 
@@ -1242,10 +1483,18 @@ def image_ms_step(cfg, spec, ds, device, scan: int, trace=layout_transposes):
           f"non-finite loss in the timed steps at scan_steps {scan}")
     transposes = None
     if scan > 1:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a call under the profiler's warm-up cycle first, so the tracer is
+        # set up before the two counted calls' replays start (a trace started
+        # just before them has missed one of their kernels)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            state, m = intro(state, inputs[0])
+            torch.cuda.synchronize()
+            prof.step()
             for i in range(2):
                 state, m = intro(state, inputs[i % 2])
             torch.cuda.synchronize()
+            prof.step()
         transposes = trace(prof, 2 * scan)
     del state, intro
     torch.cuda.empty_cache()
@@ -1926,12 +2175,15 @@ def main() -> int:
     lap("graph 3d")
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         cfg, counts_style = phase_style_train(device, card, results_dir)
-    _, mix = phase_style_step(device, card, cfg)
+    resident_ms, mix = phase_style_step(device, card, cfg)
     totals = phase_norm_sites(device, mix, peaks)
     phase_style_routes(device, cfg)
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_style_transition(device, results_dir)
     lap("style")
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
+        phase_stream(device, card, results_dir, resident_ms)
+    lap("stream")
     u8 = phase_u8norm(device, peaks)
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         cfg_image, counts_image, _ = phase_train_image(device, card, results_dir)

@@ -25,6 +25,8 @@ Usage:
     python -m soft_intro_vae_torch.cli.main toy -d 8Gaussians [-c cpu]
     python -m soft_intro_vae_torch.cli.main threed -c configs/soft_intro_vae_hp.json
     python -m soft_intro_vae_torch.cli.main style -c configs/ffhq256.yaml [KEY VALUE ...]
+    python -m soft_intro_vae_torch.cli.main style -c configs/ffhq256.yaml \
+        DATASET.PATH 'tfr/ffhq-r%02d.tfrecords.%03d' DATASET.PART_COUNT 16 DATASET.SIZE 70000
 """
 
 from __future__ import annotations
@@ -172,7 +174,12 @@ def build_parser() -> argparse.ArgumentParser:
                       help="cuda (default; fails without a GPU) or cpu")
     # the reference's train_style_soft_intro_vae.py / launcher.py surface:
     # -c <yaml> plus trailing KEY VALUE pairs merged into the config
-    p_style = sub.add_parser("style", help="progressive style variant (YAML config)")
+    p_style = sub.add_parser(
+        "style", help="progressive style variant (YAML config)",
+        epilog="Train from per-LOD TFRecord shards (soft-intro-vae-torch-prepare-tfrecords "
+               "create -o DIR --name ffhq --parts 2) with a DATASET.PATH of two %-fields, "
+               "the level and the part: DATASET.PATH 'DIR/ffhq-r%02d.tfrecords.%03d' "
+               "DATASET.PART_COUNT 2 DATASET.SIZE N.")
     p_style.add_argument("-c", "--config-file", type=str, default="configs/ffhq256.yaml",
                          metavar="FILE", help="path to YAML config file")
     p_style.add_argument("--device", type=str, default="cuda",

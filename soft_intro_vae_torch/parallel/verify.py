@@ -18,6 +18,8 @@ and global draws as arguments, so a test can feed the JAX package's.
   * ``encoder_bn_probe``: the image encoder's BatchNorms over the global
     batch, forward and input gradient;
   * ``training_probe``: the image, 3D or style trainer in each rank;
+  * ``stream_probe``: the style trainer's streamed dataset in each rank, its
+    shard files and its rows of each global batch;
   * ``compare_gradient_trees``: per-leaf relative L2, the JAX rule.
 
 ``main`` is what a rank started by ``parallel/launch.py`` runs: it joins the
@@ -216,6 +218,21 @@ def training_probe(variant: str, config: dict, images: Optional[np.ndarray] = No
     return out
 
 
+def stream_probe(config: dict, res: int, batch: int, epochs: int = 2,
+                 device: str = "cpu") -> Arrays:
+    """``make_style_dataset`` of the style config fields ``config`` in each
+    rank: ``files``, this rank's shard files at every level, and
+    ``epoch{e}``, its rows of each global batch of ``batch`` at ``res``
+    (``train/style.py rank_batches``), stacked."""
+    from soft_intro_vae_torch.train.style import StyleConfig, make_style_dataset, rank_batches
+
+    ds = make_style_dataset(StyleConfig(device=device, **config))
+    out = {"files": np.asarray(sorted(f for fs in ds.filenames.values() for f in fs))}
+    for e in range(epochs):
+        out[f"epoch{e}"] = np.stack(list(rank_batches(ds, res, batch, e, current_world())))
+    return out
+
+
 def style_probe_config(**kw):
     """The JAX style probe's tiny config (parallel/verify.py:133-134), style
     mixing and decoder noise as given."""
@@ -322,7 +339,8 @@ def compare_gradient_trees(got: Arrays, want: Arrays, rtol: float = 1e-3,
 
 
 PROBES = {"sgd_gradient_probe": sgd_gradient_probe, "style_step_probe": style_step_probe,
-          "encoder_bn_probe": encoder_bn_probe, "training_probe": training_probe}
+          "encoder_bn_probe": encoder_bn_probe, "training_probe": training_probe,
+          "stream_probe": stream_probe}
 
 
 def _inputs(path: str, prefix: str) -> dict:

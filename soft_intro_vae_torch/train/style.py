@@ -15,6 +15,14 @@ the global batch, the step reduces gradients, dlatent_avg's style mean and
 metrics, and rank 0 alone writes checkpoints, logs and figures and scores
 FID while the others wait. Without a process group: one device.
 
+Data: per-LOD TFRecord shards streamed from disk when DATASET.PATH is a
+two-field %-pattern (data/streaming.py, as JAX :303-317), else the synthetic
+stand-in. In a process group each rank reads its own ``PART_COUNT / N``
+shards (the reference's per-rank assignment, dataloader.py:53-67) and yields
+its ``B / N`` rows of each global batch from them, so unlike the in-memory
+route N ranks do not compute what one does (ROADMAP Queue 3); at world 1 the
+batches are the JAX package's, byte for byte.
+
 The YAML is read by ``utils/yaml_config.py`` (the GPU machine has no
 PyYAML). Images are fed NCHW: float batches are normalised on
 the host (x / 127.5 - 1, as the JAX trainer does for float feeds and for
@@ -25,8 +33,7 @@ scores the EMA generator by FID (metrics/fid.py) every ``fid_every`` epochs
 once the last LOD is reached, against the dataset at the LOD's resolution,
 and keeps the best-scoring state as a tagged checkpoint (the JAX trainer's
 train/style.py:378-430). Not ported yet, and raising
-``NotImplementedError`` naming their ROADMAP item: streaming TFRecords and
-activation checkpointing.
+``NotImplementedError`` naming its ROADMAP item: activation checkpointing.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from soft_intro_vae_torch.parallel.mesh import current_world, shard_state, unsharded
+from soft_intro_vae_torch.data.streaming import StreamingTFRecords
+from soft_intro_vae_torch.parallel.mesh import World, current_world, shard_state, unsharded
 from soft_intro_vae_torch.parallel.multihost import check_world, is_primary, on_primary
 from soft_intro_vae_torch.train.lod import LODDriver, pick_batch_table
 from soft_intro_vae_torch.train.style_step import (
@@ -63,10 +71,11 @@ class StyleConfig:
 
     name: str = ""
     output_dir: str = "results_style"
-    # DATASET (SIZE, PART_COUNT and FLIP_IMAGES belong to the streaming
-    # reader, not ported yet)
+    # DATASET
     dataset_path: str = ""
+    dataset_size: int = 70000
     max_resolution_level: int = 8
+    flip_images: bool = True
     # MODEL
     layer_count: int = 6
     start_channel_count: int = 64
@@ -95,6 +104,7 @@ class StyleConfig:
     lod_2_batch_tables: Optional[Dict[str, List[int]]] = None
     report_freq: Tuple[int, ...] = (100, 80, 60, 30, 20, 10, 10, 5, 5)
     snapshot_freq: Tuple[int, ...] = (300, 300, 300, 100, 50, 30, 20, 20, 10)
+    part_count: int = 1
     # runtime
     seed: int = 0
     num_devices: Optional[int] = None
@@ -107,8 +117,19 @@ class StyleConfig:
     save_figures: bool = False
     verbose: bool = True
     resume: bool = True
+    buffer_size_mb: int = 200       # the streaming reader's shuffle buffer
+    # None: this process's place in the process group (parallel/mesh.py
+    # current_world). Explicit values win: world_size=1 in a group has every
+    # rank stream all shards (as rank 0 of one) and keep its rows of each
+    # global batch
+    rank: Optional[int] = None
+    world_size: Optional[int] = None
     compute_dtype: str = "float32"  # "bfloat16": conv-path activations
     remat: bool = False
+    # host-side pixels of the streamed batches: "uint8" ships source bytes and
+    # normalizes on the device by a 256-entry table (exact for every byte);
+    # "float32" normalizes on the host
+    host_storage: str = "uint8"
     device: str = "cuda"            # port: where the nets and the batches live
     norm_impl: str = "auto"         # port: auto | plain | cuda (ops/adain.py)
 
@@ -138,7 +159,10 @@ class StyleConfig:
             name=y.get("NAME", ""),
             output_dir=y.get("OUTPUT_DIR", "results_style"),
             dataset_path=d.get("PATH", ""),
+            dataset_size=d.get("SIZE", 70000),
+            part_count=d.get("PART_COUNT", 1),
             max_resolution_level=d.get("MAX_RESOLUTION_LEVEL", 8),
+            flip_images=d.get("FLIP_IMAGES", True),
             layer_count=m.get("LAYER_COUNT", 6),
             start_channel_count=m.get("START_CHANNEL_COUNT", 64),
             max_channel_count=m.get("MAX_CHANNEL_COUNT", 512),
@@ -195,6 +219,17 @@ class MultiResImages:
 
     def __len__(self):
         return self.base.shape[0]
+
+    @classmethod
+    def from_tfrecords(cls, paths: Sequence[str], rank: int = 0, world_size: int = 1,
+                       seed: int = 0, flip: bool = True, storage: str = "float32"
+                       ) -> "MultiResImages":
+        """From max-resolution TFRecord shards (the reference's data path,
+        dataloader.py:30-102), this rank's shards of ``paths``, in memory."""
+        from soft_intro_vae_torch.data.tfrecords import load_uint8_images, shard_paths_for_rank
+
+        mine = shard_paths_for_rank(list(paths), rank, world_size)
+        return cls(load_uint8_images(mine), seed=seed, flip=flip, storage=storage)
 
     @classmethod
     def synthetic(cls, n: int, resolution: int, channels: int = 3, seed: int = 0):
@@ -266,15 +301,25 @@ def build_style_training(cfg: StyleConfig) -> Tuple[StyleModel, StyleTrainState]
     return model, shard_state(state)
 
 
-def make_style_dataset(cfg: StyleConfig) -> MultiResImages:
+def make_style_dataset(cfg: StyleConfig):
+    """The synthetic stand-in, or per-LOD TFRecord shards streamed from disk
+    when DATASET.PATH is a %-pattern (dataloader.py:60-67), this rank's
+    shards when ``rank``/``world_size`` (None: the process group's) split them."""
     max_res = 2 ** cfg.max_resolution_level
     model_res = 2 ** (cfg.layer_count + 1)
     if cfg.use_synthetic:
         return MultiResImages.synthetic(cfg.synthetic_n, min(max_res, model_res),
                                         cfg.channels, seed=cfg.seed)
     if cfg.dataset_path and "%" in cfg.dataset_path:
-        raise NotImplementedError("streaming per-LOD TFRecords are not ported yet "
-                                  "(ROADMAP.md Queue 1, item 12)")
+        world = current_world()
+        world_size = world.size if cfg.world_size is None else cfg.world_size
+        # one reader of the whole set is rank 0 of one, whatever the process's rank
+        rank = (0 if world_size == 1 else world.rank) if cfg.rank is None else cfg.rank
+        return StreamingTFRecords(
+            cfg.dataset_path, part_count=cfg.part_count, dataset_size=cfg.dataset_size,
+            max_resolution_level=cfg.max_resolution_level, rank=rank, world_size=world_size,
+            buffer_size_mb=cfg.buffer_size_mb, channels=cfg.channels, seed=cfg.seed,
+            flip=cfg.flip_images, storage=cfg.host_storage)
     raise ValueError(
         "DATASET.PATH must be a per-LOD TFRecord %-pattern "
         "(e.g. 'ffhq-r%02d.tfrecords.%03d'); set use_synthetic=True "
@@ -329,7 +374,8 @@ def _save_style_samples(model: StyleModel, cfg: StyleConfig, state: StyleTrainSt
 def make_style_fid(model: StyleModel, cfg: StyleConfig):
     """FID of the EMA generator (reference :287-299):
     ``fid_fn(state, dataset, lod, batch_size=32)``. The real statistics are
-    the dataset at the LOD's resolution, cached per resolution; the fakes are
+    the dataset at the LOD's resolution (in memory, or one pass of the shards
+    streamed: rank 0's own when they are split), cached per resolution; the fakes are
     EMA samples without truncation, [-1, 1] -> [0, 1], their latents and
     noise from a generator of their own seeded from the run's seed, so the
     training draws stay as they are."""
@@ -340,7 +386,7 @@ def make_style_fid(model: StyleModel, cfg: StyleConfig):
     real_cache: Dict[int, Tuple] = {}
 
     @torch.no_grad()
-    def fid_fn(state: StyleTrainState, dataset: MultiResImages, lod: int,
+    def fid_fn(state: StyleTrainState, dataset, lod: int,
                batch_size: int = 32) -> float:
         res = model.layer_to_resolution[lod]
         if res not in real_cache:
@@ -374,6 +420,23 @@ def make_style_fid(model: StyleModel, cfg: StyleConfig):
     return fid_fn
 
 
+def rank_batches(dataset, res: int, batch: int, epoch: int, world: World):
+    """This rank's rows of each global batch of ``batch`` images in the epoch.
+
+    In memory (and for shards every rank streams whole): the rows of the
+    global batch, with the global batch's draws. Shards split over the ranks:
+    this rank's ``batch / N`` images a step, from its own shards."""
+    local = batch // world.size
+    if not isinstance(dataset, StreamingTFRecords):
+        return dataset.epoch(res, batch, epoch_index=epoch, rows=world.rows(local))
+    if dataset.world_size == world.size:
+        return dataset.epoch(res, local, epoch_index=epoch)
+    if dataset.world_size == 1:
+        return (b[world.rows(local)] for b in dataset.epoch(res, batch, epoch_index=epoch))
+    raise ValueError(f"the shards are split over {dataset.world_size} ranks, but the process "
+                     f"group has {world.size}: leave rank/world_size unset or set world_size 1")
+
+
 def _epoch_means(device_metrics) -> dict:
     """One device->host fetch for a whole epoch of step metrics."""
     keys = list(device_metrics[0])
@@ -381,8 +444,10 @@ def _epoch_means(device_metrics) -> dict:
     return dict(zip(keys, table.double().mean(dim=1).cpu().tolist()))
 
 
-def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImages] = None):
-    """Run the style recipe; returns (state, summary)."""
+def train_style_soft_intro_vae(cfg: StyleConfig, dataset=None):
+    """Run the style recipe on ``dataset`` (a ``MultiResImages`` or a
+    ``StreamingTFRecords``; None: ``make_style_dataset(cfg)``); returns
+    (state, summary)."""
     resolve_device(cfg.device)  # fail before loading the data, not after
     if dataset is None:
         dataset = make_style_dataset(cfg)
@@ -391,9 +456,12 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
     world = current_world()
     verbose = cfg.verbose and is_primary()
     tables = cfg.lod_2_batch_tables or {"1GPU": [128, 128, 128, 32, 16, 8, 4]}
+    # images a global epoch: a streaming reader's length is its rank's share
+    dataset_size = (dataset.dataset_size if isinstance(dataset, StreamingTFRecords)
+                    else len(dataset))
     lod2batch = LODDriver(
         lod_2_batch=pick_batch_table(tables, world.size), epochs_per_lod=cfg.epochs_per_lod,
-        layer_count=cfg.layer_count, dataset_size=len(dataset), world_size=world.size,
+        layer_count=cfg.layer_count, dataset_size=dataset_size, world_size=world.size,
         report_freq=cfg.report_freq, snapshot_freq=cfg.snapshot_freq)
     ckpt = Checkpointer(os.path.join(cfg.output_dir, "training_artifacts"), prefix=cfg.name + "_")
     tracker = LossTracker(cfg.output_dir)
@@ -481,8 +549,7 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
         device_metrics = []
         it = 0
         check_world(cfg.num_devices, batch)
-        mine = world.rows(batch // world.size)
-        for raw in dataset.epoch(res, batch, epoch_index=epoch, rows=mine):
+        for raw in rank_batches(dataset, res, batch, epoch, world):
             blend = lod2batch.blend_factor_at(it)
             it += batch
             blended = lod2batch.in_transition and blend < 1.0 and lod > 0
@@ -506,7 +573,7 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset: Optional[MultiResImage
         if not device_metrics:
             raise ValueError(
                 f"epoch {epoch}: zero batches — batch {batch} exceeds "
-                f"dataset size {len(dataset)} (check LOD batch tables)")
+                f"dataset size {dataset_size} (check LOD batch tables)")
         ep_mean = _epoch_means(device_metrics)
         tracker.update(ep_mean)
         tracker.register_means(epoch)

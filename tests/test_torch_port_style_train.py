@@ -5,7 +5,8 @@ of the JAX package's MultiResImages: vanilla -> intro, a LOD switch that
 resets LREQAdam, a transition epoch with the input blend, checkpoints and a
 resume that replays an uninterrupted run exactly; the config reader against
 the JAX package's ``StyleConfig.from_yaml``; the CLI; and the options that
-are not ported yet.
+are not ported yet (the TFRecord streaming route is held to the JAX package
+in tests/test_torch_port_streaming.py).
 """
 
 import csv
@@ -155,8 +156,10 @@ def test_entry_points_default_to_cuda(tmp_path):
                                     dict(use_synthetic=False, dataset_path="r%02d.tfrecords")],
                          ids=["data-parallel", "remat", "tfrecords"])
 def test_unported_options_name_their_roadmap_item(tmp_path, change):
-    # data parallelism is ported: num_devices must be the world size
+    # data parallelism is ported: num_devices must be the world size; so is
+    # TFRecord streaming: DATASET.PATH needs two %-fields, the level and the part
     err, match = ((ValueError, "num_devices=2 but the world has 1") if "num_devices" in change
+                  else (ValueError, "two %-fields") if "dataset_path" in change
                   else (NotImplementedError, "ROADMAP"))
     with pytest.raises(err, match=match):
         train_style_soft_intro_vae(_cfg(tmp_path, **change))
