@@ -88,6 +88,29 @@ Phases, each printing one line; any failure exits non-zero:
               uint8 batches, no graph captured across the FID between graph
               calls, losses bit-equal to the run without FID); the style FID
               of the EMA generator at LOD 2;
+ 8c. figures: every array kind of cli/figures.py (samples, reconstruction,
+              interpolation, style mixing, the multi-resolution canvas, a
+              paged page, two-image interpolation; the folder kinds on
+              arrays, the card's machine has no PIL) from the style phase's
+              final checkpoint at full width: shapes and finite values, and
+              f32 samples through the kernels against the plain norm route;
+ 8d. remat style: TRAIN.REMAT at that width, LOD 6: one vanilla and one
+              intro epoch of ``train_style_soft_intro_vae``, fused-norm
+              launches held to ``style_step_launches(..., remat=True)``; one
+              f32 intro step with remat against one without (batch noise,
+              style mixing, deterministic routes) bit-equal, generator state
+              included; ms/step and peak device memory, remat off and on;
+ 8e. encoders: one f32 LOD-6 intro step with MODEL.ENCODER
+              EncoderWithStatistics and EncoderWithFC, kernel route against
+              plain route;
+ 12b. remat image: the image step with ``remat`` at scan_steps 8, graph
+              calls against eager remat steps and against graphed steps
+              without remat, all bit-equal under deterministic routes; u8norm
+              launches one a step; ms/step and peak device memory, remat off
+              and on;
+ 12c. async save: an image run at scan_steps 8 with an async save each
+              epoch: each reloaded file equals the state at its save,
+              though the graph replayed after it;
  15. dp:      data parallelism (soft_intro_vae_torch/parallel), run last:
               (a) NCCL at world 1 in this process: ``train_soft_intro_vae`` at
               the CIFAR-10 recipe and scan_steps 8 with the collectives
@@ -849,6 +872,11 @@ STYLE_TRANSITION_OPTS = ["DATASET.SYNTHETIC", "true", "DATASET.SYNTHETIC_N", "12
 # rounding-level gradient differences into moves of up to 2 lr on a few weights
 STYLE_RTOL_LOSS_E = 1e-4
 STYLE_RTOL_LOSS_D = 1e-3
+# an f32 route is held to the float64 plain route within this many times the
+# plain f32 route's own distance from it, where the quantity is ill-conditioned
+# (a loss after LREQAdam's sign-like first update, a decoded image): a second,
+# independent f32 rounding lands about as far (0.11-1.34x, measured on one H100)
+ROUTE_F64_FACTOR = 2.0
 
 
 def style_config(device, results_dir: str, opts):
@@ -863,7 +891,7 @@ def style_config(device, results_dir: str, opts):
     return cfg
 
 
-def style_step_launches(lod: int, vanilla: int, intro: int):
+def style_step_launches(lod: int, vanilla: int, intro: int, remat: bool = False):
     """(forward, backward) fused-norm launches of these steps at this LOD.
 
     Each encoder and decoder pass runs 2 norm sites per block, lod + 1 blocks.
@@ -871,9 +899,13 @@ def style_step_launches(lod: int, vanilla: int, intro: int):
     generate(fake) [no gradient], encode(x), generate(rec), encode(rec),
     generate(rec_rec), encode(fake), generate(rec_fake); D phase generate(fake),
     generate(rec), encode(rec), encode(fake), generate(rec_rec),
-    generate(rec_fake): 13 forwards, 12 of them with a gradient."""
+    generate(rec_fake): 13 forwards, 12 of them with a gradient. With
+    ``remat`` (TRAIN.REMAT) the backward recomputes every forward that has a
+    gradient, every norm site of it: 2 + 2 forwards a vanilla step, 13 + 12
+    an intro step; the backward launches are the same."""
     sites = 2 * (lod + 1)
-    return sites * (2 * vanilla + 13 * intro), sites * (2 * vanilla + 12 * intro)
+    grads = 2 * vanilla + 12 * intro
+    return sites * (2 * vanilla + 13 * intro + (grads if remat else 0)), sites * grads
 
 
 def phase_style_train(device, card: str, results_dir: str):
@@ -998,31 +1030,73 @@ def phase_style_step(device, card: str, cfg):
     return ms_step, mix
 
 
-def phase_style_routes(device, cfg):
-    """One f32 intro step through the kernels against one through the plain
-    version: same weights, batch and latents, noise_mode "none", no TF32."""
+def as_float64(state):
+    """``state`` in float64 in place: nets, EMA and LREQAdam's moments (reset,
+    so call it on a fresh state), every layer's compute type float64. The
+    plain norm computes in its input's type, so a float64 state is the plain
+    route's reference for the float32 routes."""
+    import torch
+
+    for nets in (state.nets, state.ema):
+        nets.double()
+        for m in nets.modules():
+            if isinstance(getattr(m, "dtype", None), torch.dtype):
+                m.dtype = torch.float64
+    state.reset_optimizers()
+    return state
+
+
+def style_route_losses(device, cfg32, what: str = "style", f64: bool = False) -> dict:
+    """(loss_e, loss_d) of one f32 intro step of ``cfg32`` through the kernels
+    ("cuda") and through the plain version ("plain"): same weights, batch and
+    latents, noise_mode "none", no TF32. loss_e, from forwards before any
+    update, is held kernel against plain at STYLE_RTOL_LOSS_E. loss_d follows
+    the E phase's LREQAdam update: without ``f64`` it is held kernel against
+    plain at STYLE_RTOL_LOSS_D; with ``f64`` the step also runs through the
+    plain version in float64 ("f64", ``as_float64``), and the kernel route's
+    loss_d is held to it within STYLE_RTOL_LOSS_D or within
+    ``ROUTE_F64_FACTOR`` times the plain f32 route's own distance from it,
+    whichever is larger."""
     import torch
 
     from soft_intro_vae_torch.train.style_step import NZ_KEYS
 
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     x = _style_batches(cfg32, device, 1)[0]
     gen = torch.Generator(device=device)
     gen.manual_seed(13)
-    nz = {k: torch.randn((x.shape[0], cfg.latent_space_size), generator=gen, device=device)
+    nz = {k: torch.randn((x.shape[0], cfg32.latent_space_size), generator=gen, device=device)
           for k in NZ_KEYS}
     losses = {}
+    legs = (("cuda", "cuda"), ("plain", "plain")) + ((("f64", "plain"),) if f64 else ())
     with no_tf32():
-        for impl in ("cuda", "plain"):
+        for name, impl in legs:
             state, intro = _style_intro(dataclasses.replace(cfg32, norm_impl=impl), "none")
+            if name == "f64":
+                as_float64(state)
             _, m = intro(state, x, 1.0, nz)
-            losses[impl] = (float(m["loss_e"]), float(m["loss_d"]))
+            losses[name] = (float(m["loss_e"]), float(m["loss_d"]))
             del state, intro
             torch.cuda.empty_cache()
-    for name, k, p, rtol in zip(("loss_e", "loss_d"), losses["cuda"], losses["plain"],
-                                (STYLE_RTOL_LOSS_E, STYLE_RTOL_LOSS_D)):
-        check(math.isfinite(k) and abs(k - p) <= rtol * abs(p),
-              f"style {name}: kernel route {k!r} vs plain route {p!r} (rtol {rtol:g})")
+    (ke, kd), (pe, pd) = losses["cuda"], losses["plain"]
+    check(math.isfinite(ke) and abs(ke - pe) <= STYLE_RTOL_LOSS_E * abs(pe),
+          f"{what} loss_e: kernel route {ke!r} vs plain route {pe!r} (rtol {STYLE_RTOL_LOSS_E:g})")
+    if not f64:
+        check(math.isfinite(kd) and abs(kd - pd) <= STYLE_RTOL_LOSS_D * abs(pd),
+              f"{what} loss_d: kernel route {kd!r} vs plain route {pd!r} "
+              f"(rtol {STYLE_RTOL_LOSS_D:g})")
+        return losses
+    rd = losses["f64"][1]
+    bound = max(STYLE_RTOL_LOSS_D * abs(rd), ROUTE_F64_FACTOR * abs(pd - rd))
+    check(math.isfinite(kd) and abs(kd - rd) <= bound,
+          f"{what} loss_d: kernel route {kd!r}, plain f32 route {pd!r}, float64 plain route "
+          f"{rd!r}: the kernel route is {abs(kd - rd)!r} from float64, bound {bound!r}")
+    return losses
+
+
+def phase_style_routes(device, cfg):
+    """One f32 intro step through the kernels against one through the plain
+    version: same weights, batch and latents, noise_mode "none", no TF32."""
+    losses = style_route_losses(device, dataclasses.replace(cfg, compute_dtype="float32"))
     print(f"routes style: one f32 LOD-6 intro step, noise off, TF32 off: kernel vs plain "
           f"loss_e {losses['cuda'][0]!r}/{losses['plain'][0]!r} (rtol {STYLE_RTOL_LOSS_E:g}), "
           f"loss_d {losses['cuda'][1]!r}/{losses['plain'][1]!r} (rtol {STYLE_RTOL_LOSS_D:g})",
@@ -2132,6 +2206,320 @@ def phase_dp(device, card: str, results_dir: str):
           flush=True)
 
 
+# this slice's phases: activation checkpointing (remat), the encoder variants,
+# the figures and async checkpoint saves
+REMAT_STYLE_STEPS = 5  # timed steps a window, remat off and on, after 2 warm-up steps
+ASYNC_N = 640          # images of the async-save run: 20 steps an epoch, chunks 8, 8 and 4
+
+
+def _tensors_equal(a, b, where: str, differ: list) -> int:
+    """Compare two nested payloads tensor by tensor (torch.equal), appending
+    the paths that differ to ``differ``; returns how many tensors it compared."""
+    import torch
+
+    if isinstance(a, dict):
+        check(set(a) <= set(b), f"{where}: keys {sorted(set(a) - set(b))[:4]} missing")
+        return sum(_tensors_equal(a[k], b[k], f"{where}.{k}", differ) for k in a)
+    if isinstance(a, (list, tuple)):
+        return sum(_tensors_equal(x, y, f"{where}[{i}]", differ)
+                   for i, (x, y) in enumerate(zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or not torch.equal(a.cpu(), b.cpu()):
+            differ.append(where)
+        return 1
+    if a != b:
+        differ.append(where)
+    return 0
+
+
+def phase_remat_image(device, card: str):
+    """The image step with remat at the CIFAR-10 recipe's width and
+    scan_steps 8, deterministic routes: 16 steps as two graph calls against
+    16 eager remat steps, and against 16 graphed steps without remat, all
+    bit-equal; u8norm launches one a step; ms/step and peak device memory
+    with remat off and on."""
+    import torch
+
+    from soft_intro_vae_torch.train.image import build_image_training
+
+    n = 16
+    spec, ds = image_dataset(n * 32, seed=11)
+    xs = torch.from_numpy(ds.images).to(device).view(n, 32, *ds.images.shape[1:])
+    cfg = image_config(device, "")
+
+    def builder(remat: bool):
+        def build(scan):
+            state, _, intro = build_image_training(
+                dataclasses.replace(cfg, scan_steps=scan, remat=remat), spec)
+            return state, intro
+        return build
+
+    t0 = time.perf_counter()
+    with exact_routes(deterministic_algorithms=True):
+        graph_run, eager_run, counts, captured = graph_against_eager(builder(True), xs, IMAGE_SCAN)
+        sp, plain = builder(False)(IMAGE_SCAN)
+        mp = [plain(sp, xs[i:i + IMAGE_SCAN])[1] for i in range(0, n, IMAGE_SCAN)]
+        torch.cuda.synchronize()
+    plain_run = (sp, {k: torch.cat([m[k] for m in mp]) for k in mp[0]})
+    check(counts["u8norm"] == n and captured == {"u8norm": 1},
+          f"remat K-step run: device launches {counts}, captured {captured}")
+    differ, worst, compared = compare_runs(graph_run, eager_run)
+    check(not differ, f"remat image graph against eager: {len(differ)} of {compared} tensors "
+          f"differ (first {differ[:6]}), max |diff| {worst!r}")
+    differ, worst, compared = compare_runs(graph_run, plain_run)
+    check(not differ, f"image remat on against off: {len(differ)} of {compared} tensors differ "
+          f"(first {differ[:6]}), max |diff| {worst!r}")
+    check(int(graph_run[0].model.state_dict()["encoder.main.1.num_batches_tracked"]) == 5 * n,
+          "remat advanced num_batches_tracked more than once a forward")
+    del graph_run, eager_run, plain_run, sp, plain
+    equal_s = time.perf_counter() - t0
+    timed = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, ws, _ = image_ms_step(dataclasses.replace(cfg, remat=remat), spec, ds, device,
+                                  IMAGE_SCAN, trace=lambda prof, steps: None)
+        timed[remat] = (ms, ws, torch.cuda.max_memory_allocated(device) / 2**30)
+    print(f"remat image: CIFAR-10 recipe width, batch 32, f32, scan_steps {IMAGE_SCAN}, every "
+          f"encoder/decoder forward checkpointed; TF32 off, cuDNN and PyTorch deterministic: two "
+          f"graph calls of {IMAGE_SCAN} against {n} eager remat steps, and against {n} graphed "
+          f"steps without remat: all {compared} tensors bit-equal (metrics, parameters, BN "
+          f"buffers with num_batches_tracked {5 * n} = one a forward, Adam moments and counts, "
+          f"generator); u8norm launches {counts['u8norm']} = steps, {captured['u8norm']} "
+          f"recorded in the capture ({equal_s:.2f} s); intro step after warm-up, 16-step "
+          f"windows (default TF32 policy): " + "; ".join(
+              f"remat {'on' if r else 'off'} {ms:.3f} ms/step (median of "
+              f"{'/'.join(f'{w:.3f}' for w in ws)}), peak device memory {gib:.3f} GiB"
+              for r, (ms, ws, gib) in timed.items()) + f"; on {card}", flush=True)
+    return timed
+
+
+def _style_timed(cfg, device, remat: bool):
+    """LOD-6 intro steps with and without remat: (median ms/step, windows,
+    peak device memory in GiB) after 2 warm-up steps."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    state, intro = _style_intro(dataclasses.replace(cfg, remat=remat))
+    batches = _style_batches(cfg, device, 4)
+    for i in range(2):
+        state, m = intro(state, batches[i])
+    windows = []
+    for _ in range(TIMED_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(REMAT_STYLE_STEPS):
+            state, m = intro(state, batches[i % 4])
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) * 1e3 / REMAT_STYLE_STEPS)
+    check(all(math.isfinite(float(v)) for v in m.values()), "non-finite loss in timed remat steps")
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    del state, intro, batches
+    torch.cuda.empty_cache()
+    return sorted(windows)[len(windows) // 2], windows, peak
+
+
+def phase_remat_style(device, card: str, results_dir: str):
+    """TRAIN.REMAT at ffhq256 width, LOD 6, batch 4: the trainer's vanilla and
+    intro epoch with the remat launch count; one f32 intro step with remat
+    against one without (batch noise and style mixing on, deterministic
+    routes), bit-equal with the generator's state; ms/step and peak device
+    memory with remat off and on, bf16."""
+    import torch
+
+    from soft_intro_vae_torch.train.style import train_style_soft_intro_vae
+
+    cfg = style_config(device, results_dir, STYLE_TRAIN_OPTS + ["TRAIN.REMAT", "true"])
+    check(cfg.remat, "TRAIN.REMAT true did not reach the config")
+    lod = cfg.layer_count - 1
+    steps = cfg.synthetic_n // cfg.lod_2_batch_tables["1GPU"][lod]
+    reset_counts()
+    t0 = time.perf_counter()
+    state, summary = train_style_soft_intro_vae(cfg)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = style_step_launches(lod, steps, steps, remat=True)
+    check((counts["bias_act_norm_fwd"], counts["bias_act_norm_bwd"]) == want,
+          f"remat fused-norm launches {counts}, expected forward/backward {want}")
+    last = summary["last_metrics"]
+    check(summary["steps"] == 2 * steps and all(math.isfinite(v) for v in last.values()),
+          f"remat style run: {summary['steps']} steps, metrics {last}")
+    del state
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    x = _style_batches(cfg32, device, 1)[0]
+    runs = []
+    with exact_routes(deterministic_algorithms=True):
+        for remat in (False, True):
+            state, intro = _style_intro(dataclasses.replace(cfg32, remat=remat))
+            _, m = intro(state, x)
+            torch.cuda.synchronize()
+            runs.append({"metrics": {k: v.detach().clone() for k, v in m.items()},
+                         "nets": {k: v.clone() for k, v in state.nets.state_dict().items()},
+                         "ema": {k: v.clone() for k, v in state.ema.state_dict().items()},
+                         "generator": state.generator.get_state()})
+            del state, intro
+            torch.cuda.empty_cache()
+    differ = []
+    compared = _tensors_equal(runs[0], runs[1], "step", differ)
+    check(not differ, f"style remat on against off: {len(differ)} of {compared} tensors differ "
+          f"(first {differ[:6]})")
+    del runs
+    timed = {r: _style_timed(cfg, device, r) for r in (False, True)}
+    print(f"remat style: ffhq256 width, LOD 6, batch 4, bf16, TRAIN.REMAT (encoder + mapping_tl "
+          f"and the decoder checkpointed): {steps} vanilla + {steps} intro steps in {run_s:.2f} s; "
+          f"bias_act_norm launches fwd {counts['bias_act_norm_fwd']} / bwd "
+          f"{counts['bias_act_norm_bwd']} (expected {want[0]} / {want[1]}: each forward with a "
+          f"gradient recomputed); one f32 intro step with remat against one without, batch noise "
+          f"and mixing on, TF32 off, deterministic: all {compared} tensors bit-equal (metrics, "
+          f"nets, EMA, generator state); intro step after warm-up, {REMAT_STYLE_STEPS}-step "
+          f"windows: " + "; ".join(
+              f"remat {'on' if r else 'off'} {ms:.3f} ms/step (median of "
+              f"{'/'.join(f'{w:.3f}' for w in ws)}), peak device memory {gib:.3f} GiB"
+              for r, (ms, ws, gib) in timed.items()) + f"; on {card}", flush=True)
+    return timed
+
+
+def phase_encoders(device, cfg):
+    """One f32 LOD-6 intro step at ffhq256 width for each of the other two
+    MODEL.ENCODER values: loss_e kernel route against plain route; loss_d of
+    both f32 routes against the float64 plain route (their last block's
+    4M-weight dense layer takes LREQAdam's sign-like first update, so loss_d
+    moves with rounding: the plain f32 route lands 3e-3 and 9e-3 from float64,
+    measured on one H100)."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    out = []
+    for variant in ("EncoderWithStatistics", "EncoderWithFC"):
+        losses = style_route_losses(device, dataclasses.replace(cfg32, encoder=variant), variant,
+                                    f64=True)
+        (ke, kd), (pe, pd), (_, rd) = losses["cuda"], losses["plain"], losses["f64"]
+        out.append(f"{variant} loss_e {ke!r}/{pe!r} (kernel/plain), loss_d {kd!r}/{pd!r}/{rd!r} "
+                   f"(kernel/plain/float64: {abs(kd - rd) / abs(rd):.3g} and "
+                   f"{abs(pd - rd) / abs(rd):.3g} from float64)")
+    print(f"encoders: one f32 LOD-6 intro step at ffhq256 width, noise off, TF32 off: loss_e "
+          f"kernel vs plain route rtol {STYLE_RTOL_LOSS_E:g}; loss_d kernel route to the float64 "
+          f"plain route within rtol {STYLE_RTOL_LOSS_D:g} or {ROUTE_F64_FACTOR:g} x the plain f32 "
+          f"route's distance: " + "; ".join(out), flush=True)
+
+
+def phase_figures(device, card: str, cfg, results_dir: str):
+    """Every array-producing figure kind (cli/figures.py) from the style
+    phase's final checkpoint at ffhq256 width: shapes and finite values; the
+    samples through the kernels against the plain norm route (f32, TF32 off)."""
+    import numpy as np
+
+    from soft_intro_vae_torch.cli import figures
+
+    lod = cfg.layer_count - 1
+    steps = 2 * (cfg.synthetic_n // cfg.lod_2_batch_tables["1GPU"][lod])
+    ckpt = os.path.join(results_dir, "training_artifacts",
+                        f"{cfg.name}_model_epoch_1_iter_{steps}_final.ckpt")
+    t0 = time.perf_counter()
+    model, state = figures.load_model(cfg, ckpt)
+    res = model.layer_to_resolution[lod]
+    rng = np.random.default_rng(17)
+    reals = lambda k: rng.random((k, res, res, 3), dtype=np.float32) * 2 - 1  # noqa: E731
+    grids = {
+        "samples": (figures.sample_images(model, state, count=4), (4, res, res, 3)),
+        "recon": (figures.reconstruction_images(model, state, reals(4)), (8, res, res, 3)),
+        "interpolation": (figures.interpolation_images(model, state, steps=4), (4, res, res, 3)),
+        "stylemix": (figures.style_mixing_images(model, state, n_src=2, n_dst=2),
+                     (6, res, res, 3)),
+        "recon-multires": (figures.multires_canvas(model, state, reals(20)),
+                           (2 * res + 24, 4 * (2 * res + 14), 3)),
+        "recon-paged": (figures.paged_cells(model, state, reals(6)), (6, res, 2 * res, 3)),
+        "interpolation-images": (figures.interpolation_2_images(model, state, reals(2), steps=4),
+                                 (4, res, res, 3)),
+    }
+    for kind, (arr, shape) in grids.items():
+        check(arr.shape == shape and bool(np.isfinite(arr).all()),
+              f"figure {kind}: shape {arr.shape} (expected {shape}), finite {np.isfinite(arr).all()}")
+    del model, state
+    # samples in f32 through the kernels and through the plain norm, and in
+    # float64 through the plain norm: a decoder 8 steps from the init
+    # normalizes near-constant planes, so the f32 routes' rounding is amplified
+    # (relative L2 ~2e-2 from float64, measured on one H100); the kernel route
+    # is held to float64 within ROUTE_F64_FACTOR times the plain f32 route
+    samples = {}
+    with no_tf32():
+        for name, impl in (("cuda", "cuda"), ("plain", "plain"), ("f64", "plain")):
+            model, state = figures.load_model(
+                dataclasses.replace(cfg, compute_dtype="float32", norm_impl=impl), ckpt)
+            if name == "f64":
+                as_float64(state)
+            samples[name] = figures.sample_images(model, state, count=4)
+            del model, state
+    ref = samples["f64"]
+    rel = {k: float(np.linalg.norm(samples[k] - ref) / np.linalg.norm(ref))
+           for k in ("cuda", "plain")}
+    err = float(np.abs(samples["cuda"] - samples["plain"]).max())
+    check(rel["cuda"] <= ROUTE_F64_FACTOR * rel["plain"],
+          f"figure samples: kernel route {rel['cuda']!r} from the float64 plain route (relative "
+          f"L2), more than {ROUTE_F64_FACTOR:g} x the plain f32 route's {rel['plain']!r}")
+    print(f"figures: from the style phase's final checkpoint (ffhq256 width, LOD 6, bf16), every "
+          f"array kind finite at its shape: " + ", ".join(
+              f"{k} {arr.shape}" for k, (arr, _) in grids.items()) + f"; f32 samples, kernel "
+          f"route {rel['cuda']:.4g} and plain f32 route {rel['plain']:.4g} from the float64 plain "
+          f"route (relative L2; bound {ROUTE_F64_FACTOR:g} x the plain's), kernel against plain "
+          f"max |diff| {err:.3g}; "
+          f"{time.perf_counter() - t0:.2f} s on {card}", flush=True)
+
+
+def phase_async_save(device, card: str, results_dir: str):
+    """The image trainer at the CIFAR-10 recipe's width and scan_steps 8 with
+    an async save each epoch: each file, reloaded, equals the state at its
+    save (a host copy taken there), though the graph replayed after it."""
+    import torch
+
+    from soft_intro_vae_torch.train.image import train_soft_intro_vae
+    from soft_intro_vae_torch.utils.checkpoint import Checkpointer, to_host
+
+    spec, ds = image_dataset(ASYNC_N, seed=13)
+    cfg = image_config(device, results_dir, scan_steps=IMAGE_SCAN, num_epochs=3,
+                       save_interval=1)
+    saves = []
+    real_save = Checkpointer.save
+
+    def recording_save(self, state, epoch, iteration=0, tag="", aux=None, async_save=False):
+        torch.cuda.synchronize()
+        saves.append((epoch, iteration, async_save, to_host(state.state_dict())))
+        return real_save(self, state, epoch, iteration, tag, aux, async_save)
+
+    t0 = time.perf_counter()
+    Checkpointer.save = recording_save
+    try:
+        state, summary = train_soft_intro_vae(cfg, ds, spec)
+    finally:
+        Checkpointer.save = real_save
+    torch.cuda.synchronize()
+    per_epoch = ASYNC_N // cfg.batch_size
+    check([(e, i, a) for e, i, a, _ in saves] ==
+          [(1, per_epoch, True), (2, 2 * per_epoch, True), (2, 3 * per_epoch, False)],
+          f"image run saves: {[(e, i, a) for e, i, a, _ in saves]}")
+    prefix = f"cifar10_soft_intro_betas_{cfg.beta_kl}_{cfg.beta_neg}_{cfg.beta_rec}_"
+    compared, moved = 0, []
+    for epoch, it, _, want in saves:
+        path = os.path.join(results_dir, "saves", f"{prefix}model_epoch_{epoch}_iter_{it}.ckpt")
+        got = torch.load(path, map_location="cpu", weights_only=True)
+        differ = []
+        compared += _tensors_equal(want, got, os.path.basename(path), differ)
+        check(not differ, f"checkpoint {path}: {len(differ)} tensors differ from the state at "
+              f"its save (first {differ[:4]})")
+    final = state.model.state_dict()
+    for epoch, _, is_async, want in saves:
+        if is_async:
+            moved.append(not torch.equal(want["model"]["encoder.fc.weight"],
+                                         final["encoder.fc.weight"].cpu()))
+    check(all(moved), "the state did not move after an async save: the check would be empty")
+    print(f"async save: CIFAR-10 recipe width, scan_steps {IMAGE_SCAN}, {ASYNC_N} uint8 images, "
+          f"3 epochs, async saves at epochs 1 and 2 then the final synchronous one: each of the "
+          f"3 files reloads equal to the state at its save, {compared} tensors torch.equal, "
+          f"while the graph replayed on after each async save; "
+          f"{time.perf_counter() - t0:.2f} s on {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2173,14 +2561,20 @@ def main() -> int:
     lap("train 3d")
     phase_graph_3d(device)
     lap("graph 3d")
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as style_dir:
+        cfg, counts_style = phase_style_train(device, card, style_dir)
+        resident_ms, mix = phase_style_step(device, card, cfg)
+        totals = phase_norm_sites(device, mix, peaks)
+        phase_style_routes(device, cfg)
+        with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
+            phase_style_transition(device, results_dir)
+        lap("style")
+        phase_figures(device, card, cfg, style_dir)  # from the style phase's final checkpoint
+        lap("figures")
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
-        cfg, counts_style = phase_style_train(device, card, results_dir)
-    resident_ms, mix = phase_style_step(device, card, cfg)
-    totals = phase_norm_sites(device, mix, peaks)
-    phase_style_routes(device, cfg)
-    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
-        phase_style_transition(device, results_dir)
-    lap("style")
+        phase_remat_style(device, card, results_dir)
+    phase_encoders(device, cfg)
+    lap("remat style and encoders")
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_stream(device, card, results_dir, resident_ms)
     lap("stream")
@@ -2193,6 +2587,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_bootstrap_image(device, results_dir)
     lap("graph image and bootstrap")
+    phase_remat_image(device, card)
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
+        phase_async_save(device, card, results_dir)
+    lap("remat image and async save")
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_toy(device, card, results_dir)
     lap("toy")

@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from soft_intro_vae_torch.models.remat import current_frame
 from soft_intro_vae_torch.parallel.collectives import batch_norm
 from soft_intro_vae_torch.parallel.mesh import current_world
 
@@ -54,12 +55,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d (momentum 0.1, eps 1e-5) that normalizes in float32 and
     returns the input's dtype. In train mode on the distributed route its
     statistics are the global batch's (parallel/collectives.py); without a
-    process group it is PyTorch's (cuDNN's on the card)."""
+    process group it is PyTorch's (cuDNN's on the card).
+
+    In the recompute of a checkpointed forward (models/remat.py) a train-mode
+    BN normalizes with the batch's statistics and leaves its running buffers
+    and ``num_batches_tracked`` as the forward left them; the global route
+    reads back the sums the forward all-reduced."""
 
     def forward(self, x: Tensor) -> Tensor:
         world = current_world()
+        frame = current_frame()
         if self.training and world.active:
-            return batch_norm(x.float(), self, world).to(x.dtype)
+            return batch_norm(x.float(), self, world, frame).to(x.dtype)
+        if self.training and frame is not None and frame.replaying:
+            # scratch copies of the buffers take the update: the same call as
+            # the forward's, so the backward finds the tensors it saved
+            return F.batch_norm(x.float(), self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum,
+                                self.eps).to(x.dtype)
         if x.dtype == torch.float32:
             return super().forward(x)
         return super().forward(x.float()).to(x.dtype)

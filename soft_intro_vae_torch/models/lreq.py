@@ -29,19 +29,21 @@ def _raw_weight(shape, lrmul: float) -> nn.Parameter:
 
 
 class LreqDense(nn.Module):
-    """lreq.Linear (lreq.py:52-88): y = x @ (W * std).T + b * lrmul, in float32."""
+    """lreq.Linear (lreq.py:52-88): y = x @ (W * std).T + b * lrmul, in float32
+    or in ``dtype`` (the compute type, as the JAX layer's ``dtype=``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 gain: float = SQRT2, lrmul: float = 1.0):
+                 gain: float = SQRT2, lrmul: float = 1.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.lrmul = lrmul
+        self.dtype = dtype
         self.std = gain / math.sqrt(in_features) * lrmul
         self.weight = _raw_weight((out_features, in_features), lrmul)
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x: Tensor) -> Tensor:
-        bias = self.bias * self.lrmul if self.bias is not None else None
-        return F.linear(x.to(self.weight.dtype), self.weight * self.std, bias)
+        bias = (self.bias * self.lrmul).to(self.dtype) if self.bias is not None else None
+        return F.linear(x.to(self.dtype), (self.weight * self.std).to(self.dtype), bias)
 
 
 def box_transform(w: Tensor) -> Tensor:

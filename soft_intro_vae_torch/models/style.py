@@ -5,7 +5,11 @@ depthwise), EncodeBlock (per-block style statistics -> w), DecodeBlock (noise
 inject or the deterministic correction, two AdaIN stages), FromRGB/ToRGB,
 EncoderDefault (styles sum, with the blended transition path),
 GeneratorDefault (const 4x4 input, progressive decode with blend) and the
-two mappings. Module and parameter names are the reference's, as
+mappings. The encoder also builds the registry's other two variants
+(MODEL.ENCODER): EncoderWithStatistics, whose last block replaces its second
+conv with a dense layer on the flattened 4x4 map (``dense``), and
+EncoderWithFC, the same with an ``fc2`` head (JAX models/style.py:161-168,
+313-359). Module and parameter names are the reference's, as
 ``convert_style_encoder``/``convert_style_generator``/``convert_mapping``
 (soft_intro_vae_tpu/utils/torch_compat.py:264-321) read them.
 
@@ -65,22 +69,31 @@ def _style_stats(m: Tensor, v: Tensor) -> Tensor:
 
 
 class EncodeBlock(nn.Module):
-    """net.py:63-126, the conv path (EncoderDefault never builds the dense one)."""
+    """net.py:63-126. ``last``: the dense path of the variants' last block
+    (net.py:103-108): after the first norm the (C, 4, 4) map is flattened in
+    (C, H, W) order into ``dense``, then a leaky ReLU, and style_2 reads that
+    output. There is no bias_2 on this path, and the JAX package's tree has
+    none, so neither has the block."""
 
     def __init__(self, inputs: int, outputs: int, latent_size: int, fused_scale: bool = True,
-                 dtype: torch.dtype = torch.float32, norm_impl: str = "auto"):
+                 dtype: torch.dtype = torch.float32, norm_impl: str = "auto", last: bool = False):
         super().__init__()
         self.fused_scale = fused_scale
         self.norm_impl = norm_impl
+        self.last = last
         self.conv_1 = LreqConv2d(inputs, inputs, 3, 1, 1, bias=False, dtype=dtype)
         self.bias_1 = nn.Parameter(torch.zeros(1, inputs, 1, 1))
+        self.style_1 = LreqDense(2 * inputs, latent_size)
+        if last:
+            self.dense = LreqDense(inputs * 4 * 4, outputs, dtype=dtype)
+            self.style_2 = LreqDense(outputs, latent_size)
+            return
         if fused_scale:
             self.conv_2 = LreqConv2d(inputs, outputs, 3, 2, 1, bias=False, transform_kernel=True,
                                      dtype=dtype)
         else:
             self.conv_2 = LreqConv2d(inputs, outputs, 3, 1, 1, bias=False, dtype=dtype)
         self.bias_2 = nn.Parameter(torch.zeros(1, outputs, 1, 1))
-        self.style_1 = LreqDense(2 * inputs, latent_size)
         self.style_2 = LreqDense(2 * outputs, latent_size)
 
     def forward(self, x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -89,6 +102,9 @@ class EncodeBlock(nn.Module):
         x, m1, v1 = bias_act_norm(self.conv_1(x), self.bias_1.view(-1), mode="plain", eps=1e-5,
                                   impl=self.norm_impl)
         style_1 = _style_stats(m1, v1)
+        if self.last:
+            x = F.leaky_relu(self.dense(x.flatten(1)), 0.2)
+            return x, self.style_1(style_1), self.style_2(x.float())
         x = self.conv_2(blur3x3(x))
         if not self.fused_scale:
             x = downscale2d(x)
@@ -181,26 +197,36 @@ class ToRGB(nn.Module):
 
 
 class StyleEncoder(nn.Module):
-    """EncoderDefault (net.py:234-319): styles-sum output (B, 1, latent)."""
+    """EncoderDefault (net.py:234-319): styles-sum output (B, 1, latent).
+
+    ``last_block_dense`` builds EncoderWithStatistics (net.py:412-497),
+    ``with_fc_head`` EncoderWithFC (net.py:322-409), which also returns the
+    ``fc2`` logit of the last block's output: ``(styles, (B, 1))``."""
 
     def __init__(self, startf: int = 32, maxf: int = 256, layer_count: int = 3,
                  latent_size: int = 128, channels: int = 3, dtype: torch.dtype = torch.float32,
-                 norm_impl: str = "auto"):
+                 norm_impl: str = "auto", with_fc_head: bool = False,
+                 last_block_dense: bool = False):
         super().__init__()
         self.layer_count = layer_count
         self.latent_size = latent_size
+        self.with_fc_head = with_fc_head
         self.from_rgb = nn.ModuleList()
         self.encode_block = nn.ModuleList()
         mul, inputs = 2, startf
         resolution = 2 ** (layer_count + 1)
-        for _ in range(layer_count):
+        last_dense = with_fc_head or last_block_dense
+        for i in range(layer_count):
             outputs = min(maxf, startf * mul)
             self.from_rgb.append(FromRGB(channels, inputs, dtype))
             self.encode_block.append(EncodeBlock(inputs, outputs, latent_size,
                                                  fused_scale=resolution >= 128, dtype=dtype,
-                                                 norm_impl=norm_impl))
+                                                 norm_impl=norm_impl,
+                                                 last=last_dense and i == layer_count - 1))
             resolution //= 2
             inputs, mul = outputs, mul * 2
+        if with_fc_head:
+            self.fc2 = LreqDense(inputs, 1, gain=1.0)
 
     def forward(self, x: Tensor, lod: int, blend: Optional[float] = None) -> Tensor:
         styles = torch.zeros((x.shape[0], self.latent_size), dtype=torch.float32,
@@ -220,6 +246,8 @@ class StyleEncoder(nn.Module):
         for i in range(start, self.layer_count):
             h, s1, s2 = self.encode_block[i](h)
             styles = styles + s1 + s2
+        if self.with_fc_head:
+            return styles[:, None, :], self.fc2(h)
         return styles[:, None, :]
 
 
@@ -295,6 +323,27 @@ class MappingToLatent(nn.Module):
         for blk in self.map_blocks:
             h = F.leaky_relu(blk.fc(h), 0.2)
         return h.view(h.shape[0], 2, h.shape[1] // 2)
+
+
+class MappingToLatentNoStyle(nn.Module):
+    """net.py:730-751: plain lrmul=0.1 linears with no activation, stored bare
+    as ``map_blocks.{i}`` (JAX models/style.py:449-461). No config uses it."""
+
+    def __init__(self, latent_size: int = 256, dlatent_size: int = 256, mapping_fmaps: int = 256,
+                 mapping_layers: int = 3):
+        super().__init__()
+        self.map_blocks = nn.ModuleList()
+        inputs = latent_size
+        for i in range(mapping_layers):
+            outputs = dlatent_size if i == mapping_layers - 1 else mapping_fmaps
+            self.map_blocks.append(LreqDense(inputs, outputs, lrmul=0.1))
+            inputs = outputs
+
+    def forward(self, x: Tensor) -> Tensor:
+        h = x.reshape(x.shape[0], -1)
+        for blk in self.map_blocks:
+            h = blk(h)
+        return h
 
 
 class MappingFromLatent(nn.Module):

@@ -155,18 +155,24 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var, num_batches_tracked,
-                momentum: float, eps: float, world_size: int):
+                momentum: float, eps: float, world_size: int, frame):
         c, dims = x.shape[1], (0,) + tuple(range(2, x.dim()))
         f64 = torch.float64
-        stats = torch.cat([x.sum(dims, dtype=f64), (x * x).sum(dims, dtype=f64)])
-        _all_reduce_(stats, "bn_fwd")
+        replaying = frame is not None and frame.replaying
+        if replaying:  # a checkpoint's recompute: the sums its forward all-reduced
+            stats = frame.replay()
+        else:
+            stats = torch.cat([x.sum(dims, dtype=f64), (x * x).sum(dims, dtype=f64)])
+            _all_reduce_(stats, "bn_fwd")
+            if frame is not None:
+                frame.record(stats)
         n = x.numel() // c * world_size
         mean64 = stats[:c] / n
         mean = mean64.float()
         var = (stats[c:] / n - mean64 * mean64).clamp_min(0.0).float()  # flax's fast variance
         invstd = torch.rsqrt(var + eps)
         y = (x - _bcast(mean, x.dim())) * _bcast(weight * invstd, x.dim()) + _bcast(bias, x.dim())
-        with torch.no_grad():
+        if not replaying:
             # torch.nn.BatchNorm's update: the unbiased variance, n the global count
             running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
             running_var.mul_(1.0 - momentum).add_(var * (n / max(n - 1, 1)), alpha=momentum)
@@ -185,11 +191,16 @@ class _GlobalBatchNorm(torch.autograd.Function):
         total = _all_reduce_(local.clone(), "bn_bwd")
         mean_dy, mean_dy_xhat = (total[:c] / ctx.n).float(), (total[c:] / ctx.n).float()
         dx = (dy - _bcast(mean_dy, d) - xhat * _bcast(mean_dy_xhat, d)) * _bcast(weight * invstd, d)
-        return dx, local[c:].float(), local[:c].float(), None, None, None, None, None, None
+        return dx, local[c:].float(), local[:c].float(), None, None, None, None, None, None, None
 
 
-def batch_norm(x: Tensor, bn: torch.nn.modules.batchnorm._BatchNorm, world: World) -> Tensor:
+def batch_norm(x: Tensor, bn: torch.nn.modules.batchnorm._BatchNorm, world: World,
+               frame=None) -> Tensor:
     """``bn``'s train-mode forward over the global batch of ``world``; float32
-    ``x``. The running statistics of ``bn`` take the global statistics."""
+    ``x``. The running statistics of ``bn`` take the global statistics.
+
+    ``frame``: the checkpointed call running (models/remat.py). Its forward
+    records the all-reduced sums; its recompute reads them back, issues no
+    collective and leaves the running statistics alone."""
     return _GlobalBatchNorm.apply(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                                  bn.num_batches_tracked, bn.momentum, bn.eps, world.size)
+                                  bn.num_batches_tracked, bn.momentum, bn.eps, world.size, frame)

@@ -31,6 +31,12 @@ W, C) transfer, the last chunk of an epoch shorter where the batches run
 out, and one K-step call takes each chunk: a CUDA graph of one step replayed
 once a batch on the card, K eager steps on the CPU (train/graph.py).
 
+``remat`` checkpoints every encoder, decoder and target-decoder forward of
+the steps (train/step.py, models/remat.py): bit-equal to the plain steps,
+for less device memory and more compute. The interval checkpoints are saved
+asynchronously from a host copy of the state taken before the graph replays
+again (utils/checkpoint.py); the final save waits for them.
+
 Data parallelism (parallel/): in a process group of N ranks (one a card,
 ``python -m torch.distributed.run --nproc_per_node N``), ``batch_size`` is
 the global batch: every rank draws the same epoch permutation and takes its
@@ -124,9 +130,6 @@ class ImageConfig:
 
 def _check_supported(cfg: ImageConfig) -> None:
     check_world(cfg.num_devices, cfg.batch_size)
-    if cfg.remat:
-        raise NotImplementedError("activation checkpointing (remat) is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 13)")
     if cfg.compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype must be one of {list(DTYPES)}, got {cfg.compute_dtype!r}")
 
@@ -166,7 +169,7 @@ def build_image_training(cfg: ImageConfig, spec: ImageSpec):
                           loss_type=cfg.recon_loss_type, bootstrap=cfg.bootstrap,
                           u8norm_impl=cfg.u8norm_impl)
     vanilla_step, intro_step = build_train_steps(cfg=step_cfg, scan_steps=cfg.scan_steps,
-                                                 input_lut=UNIT_LUT, nhwc=True)
+                                                 input_lut=UNIT_LUT, nhwc=True, remat=cfg.remat)
     return shard_state(state), vanilla_step, intro_step
 
 
@@ -278,7 +281,7 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
                 summary["best_fid"] = fid
                 ckpt.save(state, epoch, cur_iter, tag=f"_{fid_name}_{fid:.3f}")
         if epoch % cfg.save_interval == 0 and epoch > 0:
-            ckpt.save(state, epoch, cur_iter)
+            ckpt.save(state, epoch, cur_iter, async_save=True)  # a host snapshot, then a thread
         step_fn = vanilla_step if epoch < cfg.num_vae else intro_step
 
         def host_batches(epoch=epoch):
@@ -333,7 +336,7 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
             msg = ", ".join(f"{k}: {ep_mean[k]:.3f}" for k in keys if k in ep_mean)
             print(f"epoch {epoch}: {msg} ({time.time() - start:.1f}s)")
 
-    ckpt.save(state, cfg.num_epochs - 1, cur_iter)
+    ckpt.save(state, cfg.num_epochs - 1, cur_iter)  # waits for the async save in flight
     tracker.plot()
     tracker.save_pickle()  # loss-curve pickle (:695-697)
     return state, summary

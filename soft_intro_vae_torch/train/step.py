@@ -40,6 +40,11 @@ the global batch (injected ``noises`` are global too), each phase's
 gradients are all-reduced once between ``backward()`` and the optimizer's
 step, the nets' BatchNorms take global statistics, and the metrics are the
 global means. Without a process group none of this runs.
+
+``remat=True`` (the JAX package's ``make_model_fns(remat=True)``, there for
+the image trainer) runs every encoder, decoder and target-decoder forward
+under activation checkpointing (models/remat.py): the backward recomputes
+the activations it needs. BN buffers and metrics are those of the plain step.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from soft_intro_vae_torch.models.remat import maybe_checkpoint
 from soft_intro_vae_torch.ops.chamfer import chamfer_distance
 from soft_intro_vae_torch.ops.losses import (
     exp_elbo,
@@ -154,7 +160,7 @@ def _input_fn(input_lut, nhwc: bool, u8norm_impl: str = "auto") -> Callable[[Ten
 
 
 def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
-                      nhwc: bool = False) -> Tuple[StepFn, StepFn]:
+                      nhwc: bool = False, remat: bool = False) -> Tuple[StepFn, StepFn]:
     """Returns ``(vanilla_step, intro_step)``:
     ``step(state, x, noises=None) -> (state, metrics)``, with ``state``
     updated in place and ``metrics`` a dict of 0-dim tensors left on the device.
@@ -173,6 +179,9 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
     ...)) -> (state, metrics: (K,) each)``, as the JAX scan's: K steps a
     call, a CUDA graph replayed once a step on the card, eager steps on the
     CPU (train/graph.py). ``scan_steps == 1`` steps are eager everywhere.
+
+    ``remat=True`` checkpoints each subnet forward (module doc); a K-step
+    graph then captures the recomputes inside its backward.
     """
     if scan_steps < 1:
         raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
@@ -180,6 +189,7 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
     kl_mean = partial(kl_divergence, logvar_o=cfg.prior_logvar, reduce="mean")
     kl_none = partial(kl_divergence, logvar_o=cfg.prior_logvar, reduce="none")
     prepare = _input_fn(input_lut, nhwc, cfg.u8norm_impl)
+    run = maybe_checkpoint(remat)  # run(net, input): the net's forward
 
     def target_of(state: TrainState) -> nn.Module:
         if state.target_decoder is None:
@@ -201,10 +211,10 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
         _trainable(enc, True)
         _trainable(dec, True)
         eps = draw(state, noises or {}, "eps", x.shape[0])
-        mu, logvar = enc(x)
+        mu, logvar = run(enc, x)
         # bootstrap: the target decoder reconstructs (the reference model's
         # forward with target=True)
-        rec = (target_of(state) if cfg.bootstrap else dec)(reparameterize(mu, logvar, eps))
+        rec = run(target_of(state) if cfg.bootstrap else dec, reparameterize(mu, logvar, eps))
         loss_rec = recon_mean(x, rec)
         loss_kl = kl_mean(mu, logvar)
         loss = cfg.beta_rec * loss_rec + cfg.beta_kl * loss_kl  # unscaled (:527)
@@ -236,20 +246,20 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
         # ===================== E phase =====================
         _trainable(enc, True)
         _trainable(dec, False)
-        fake = dec(noise)
-        mu, logvar = enc(x)
+        fake = run(dec, noise)  # nothing needs a gradient: never recomputed
+        mu, logvar = run(enc, x)
         z = reparameterize(mu, logvar, eps_real)
-        rec = dec(z)
+        rec = run(dec, z)
         loss_rec = recon_mean(x, rec)
         kl_real = kl_mean(mu, logvar)
 
         # full forwards on detached decoder outputs (:567-568)
-        rmu, rlv = enc(rec.detach())
+        rmu, rlv = run(enc, rec.detach())
         z_r = reparameterize(rmu, rlv, eps_e_rec)
-        fmu, flv = enc(fake.detach())
+        fmu, flv = run(enc, fake.detach())
         z_f = reparameterize(fmu, flv, eps_e_fake)
-        rec_rec = dec_x(z_r)
-        rec_fake = dec_x(z_f)
+        rec_rec = run(dec_x, z_r)
+        rec_fake = run(dec_x, z_f)
 
         tgt_rec = rec.detach() if cfg.detach_expelbo_targets else rec
         rr = recon_per_sample(tgt_rec, rec_rec)
@@ -273,21 +283,21 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
                 z_d = reparameterize(mu, logvar, eps_d_z)  # 3d:318-320
             else:
                 z_d = z.detach()  # :598
-        fake = dec(noise)
-        rec = dec(z_d)
+        fake = run(dec, noise)
+        rec = run(dec, z_d)
         loss_rec = recon_mean(x, rec)
 
-        rmu, rlv = enc(rec)    # rec NOT detached
+        rmu, rlv = run(enc, rec)    # rec NOT detached
         z_rec = reparameterize(rmu, rlv, eps_d_rec)
-        fmu, flv = enc(fake)   # fake NOT detached
+        fmu, flv = run(enc, fake)   # fake NOT detached
         z_fake = reparameterize(fmu, flv, eps_d_fake)
         if cfg.bootstrap:
             # the target decoder, z and the targets NOT detached (bootstrap:635-636)
-            rec_rec, rec_fake = dec_x(z_rec), dec_x(z_fake)
+            rec_rec, rec_fake = run(dec_x, z_rec), run(dec_x, z_fake)
             tgt_r, tgt_f = rec, fake
         else:
-            rec_rec = dec(z_rec.detach())   # :607-608
-            rec_fake = dec(z_fake.detach())
+            rec_rec = run(dec, z_rec.detach())   # :607-608
+            rec_fake = run(dec, z_fake.detach())
             tgt_r, tgt_f = rec.detach(), fake.detach()  # :610-613
         loss_rec_rec = recon_mean(tgt_r, rec_rec)
         loss_fake_rec = recon_mean(tgt_f, rec_fake)

@@ -32,8 +32,11 @@ normalised there by a 256-entry table lookup, exact for every byte.
 scores the EMA generator by FID (metrics/fid.py) every ``fid_every`` epochs
 once the last LOD is reached, against the dataset at the LOD's resolution,
 and keeps the best-scoring state as a tagged checkpoint (the JAX trainer's
-train/style.py:378-430). Not ported yet, and raising
-``NotImplementedError`` naming its ROADMAP item: activation checkpointing.
+train/style.py:378-430). ``TRAIN.REMAT`` checkpoints the encoder with
+mapping_tl and the decoder (train/style_step.py). The mid-epoch snapshots
+and the end-of-epoch checkpoints are saved asynchronously, from a host copy
+of the state (utils/checkpoint.py); the trainer waits for the last before it
+returns.
 """
 
 from __future__ import annotations
@@ -281,9 +284,6 @@ def _lr_for(cfg: StyleConfig, epoch: int, lod: int) -> float:
 def build_style_training(cfg: StyleConfig) -> Tuple[StyleModel, StyleTrainState]:
     """(model, state) on ``cfg.device``, the nets drawn from ``cfg.seed``."""
     check_world(cfg.num_devices)  # each LOD's batch is checked when it starts
-    if cfg.remat:
-        raise NotImplementedError("activation checkpointing (TRAIN.REMAT) is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 13)")
     device = resolve_device(cfg.device)
     model = StyleModel(StyleModelConfig(
         startf=cfg.start_channel_count, maxf=cfg.max_channel_count,
@@ -291,7 +291,8 @@ def build_style_training(cfg: StyleConfig) -> Tuple[StyleModel, StyleTrainState]
         mapping_layers=cfg.mapping_layers, channels=cfg.channels,
         dlatent_avg_beta=cfg.dlatent_avg_beta, style_mixing_prob=cfg.style_mixing_prob,
         truncation_psi=cfg.truncation_psi, truncation_cutoff=cfg.truncation_cutoff,
-        encoder_variant=cfg.encoder, compute_dtype=cfg.compute_dtype, norm_impl=cfg.norm_impl))
+        encoder_variant=cfg.encoder, compute_dtype=cfg.compute_dtype, norm_impl=cfg.norm_impl,
+        remat=cfg.remat))
     # the nets are made from the seed without touching the global RNG
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
@@ -562,7 +563,7 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset=None):
             lod2batch.step()
             if lod2batch.is_time_to_save():
                 # mid-epoch snapshot: resume restarts this epoch
-                ckpt.save(state, epoch, state.step, aux=aux(lod, False))
+                ckpt.save(state, epoch, state.step, aux=aux(lod, False), async_save=True)
             if cfg.save_figures and lod2batch.is_time_to_report() and is_primary():
                 with unsharded():
                     _save_style_samples(model, cfg, state, lod, epoch, lod2batch.iteration)
@@ -582,7 +583,7 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset=None):
         summary["epochs_run"] = epoch + 1
         summary["last_metrics"] = ep_mean
         # end-of-epoch checkpoint (reference model_tmp_lod%d, :425): the resume anchor
-        ckpt.save(state, epoch, state.step, aux=aux(lod, True))
+        ckpt.save(state, epoch, state.step, aux=aux(lod, True), async_save=True)
         if verbose:
             shown = {k: round(v, 4) for k, v in ep_mean.items()
                      if k in ("rec_loss", "real_kl", "fake_kl", "kl_diff")}
@@ -593,4 +594,5 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset=None):
         # skip the redundant _final rewrite when resume found nothing to do
         ckpt.save(state, cfg.train_epochs - 1, state.step, tag="_final",
                   aux=aux(lod2batch.lod, True))
+    ckpt.wait()
     return state, summary

@@ -18,6 +18,13 @@ own z), style mixing, and the decoder's noise planes. A step's ``nz`` dict
 injects the latent draws by name instead (``NZ_KEYS``), as the JAX step's
 ``nz`` hook does.
 
+``StyleModelConfig.remat`` (TRAIN.REMAT) checkpoints two parts of every
+forward, as the JAX package does (train/style_step.py:109-125,160-168): the
+encoder with mapping_tl, and the decoder (models/remat.py). The decoder's
+recompute draws its noise planes again from ``state.generator``'s state at
+the forward, and leaves the generator where the forward left it, so a remat
+step is the plain step bit for bit.
+
 Data parallelism (parallel/mesh.py): in a process group every per-sample
 draw (latents, the mixing latents, the decoder's noise planes) is this
 rank's rows of a draw for the global batch, injected ``nz`` arrays are
@@ -35,6 +42,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from soft_intro_vae_torch.models.remat import maybe_checkpoint
 from soft_intro_vae_torch.models.style import (
     MappingFromLatent,
     MappingToLatent,
@@ -82,6 +90,8 @@ class StyleModelConfig:
     # the fused norm's route: auto (the CUDA kernels for CUDA tensors) | plain
     # (the PyTorch version, for comparing the two on the card) | cuda
     norm_impl: str = "auto"
+    # TRAIN.REMAT: checkpoint encoder + mapping_tl and the decoder (module doc)
+    remat: bool = False
 
 
 class DLatent(nn.Module):
@@ -117,15 +127,12 @@ class StyleModel:
     def __init__(self, mc: StyleModelConfig):
         if mc.encoder_variant not in ENCODER_VARIANTS:
             raise ValueError(f"unknown MODEL.ENCODER {mc.encoder_variant!r}")
-        if mc.encoder_variant != "EncoderDefault":
-            raise NotImplementedError(
-                f"MODEL.ENCODER {mc.encoder_variant} is not ported yet; no config uses it "
-                "(ROADMAP.md Queue 1, item 13)")
         if mc.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute dtype {mc.compute_dtype!r}")
         self.mc = mc
         self.num_layers = 2 * mc.layer_count
         self.layer_to_resolution = [2 ** (i + 2) for i in range(mc.layer_count)]
+        self._run = maybe_checkpoint(mc.remat)
 
     def make_nets(self) -> StyleNets:
         """Fresh nets on the CPU, drawn from the global torch RNG."""
@@ -134,8 +141,11 @@ class StyleModel:
                   latent_size=mc.latent_size, channels=mc.channels,
                   dtype=_DTYPES[mc.compute_dtype], norm_impl=mc.norm_impl)
         lat = mc.latent_size
+        encoder = StyleEncoder(with_fc_head=mc.encoder_variant == "EncoderWithFC",
+                               last_block_dense=mc.encoder_variant == "EncoderWithStatistics",
+                               **kw)
         return StyleNets(
-            StyleEncoder(**kw), StyleGenerator(**kw),
+            encoder, StyleGenerator(**kw),
             MappingToLatent(latent_size=lat, dlatent_size=lat, mapping_fmaps=lat, mapping_layers=3),
             MappingFromLatent(num_layers=self.num_layers, latent_size=lat, dlatent_size=lat,
                               mapping_fmaps=lat, mapping_layers=mc.mapping_layers),
@@ -143,8 +153,16 @@ class StyleModel:
 
     def encode(self, nets: StyleNets, x: Tensor, lod: int, blend: Optional[float],
                eps: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-        """(z, mu, logvar) — model.py:208-213."""
-        y = nets.mapping_tl(nets.encoder(x, lod, blend))
+        """(z, mu, logvar) — model.py:208-213. EncoderWithFC's fc2 logit is
+        dropped: only the styles feed mapping_tl (JAX train/style_step.py:109-118)."""
+
+        def fwd(x):
+            styles = nets.encoder(x, lod, blend)
+            if isinstance(styles, tuple):
+                styles = styles[0]
+            return nets.mapping_tl(styles)
+
+        y = self._run(fwd, x)
         mu, logvar = y[:, 0, :], y[:, 1, :]
         return mu + eps * torch.exp(0.5 * logvar), mu, logvar
 
@@ -172,7 +190,8 @@ class StyleModel:
         if truncation and mc.truncation_psi is not None:
             coefs = torch.where(layer_idx < mc.truncation_cutoff, mc.truncation_psi, 1.0)
             styles = avg[None] + (styles - avg[None]) * coefs
-        return nets.decoder(styles, lod, blend, noise_mode, generator)
+        return self._run(nets.decoder, styles, lod, blend, noise_mode, generator,
+                         generator=generator)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,8 +19,20 @@ pointer beside them and the reference's find-latest-epoch fallback
 ``aux`` is JSON-serialisable host-side training state (tracker history,
 LODs seen, whether the epoch completed) written to a ``.aux.json`` sidecar,
 as the JAX Checkpointer writes it (the reference Checkpointer's auxiliary
-dict, checkpointer.py:23-36). Saves are synchronous: the state lives on the
-device, and copying it to the host is most of a save's work.
+dict, checkpointer.py:23-36).
+
+``save(..., async_save=True)`` writes on a thread, as the JAX Checkpointer
+does (soft_intro_vae_tpu/utils/checkpoint.py:102-150): before ``save``
+returns, the state is copied to host memory and ``aux`` is deep-copied, so
+the file holds the state at the call even when the trainer updates its
+tensors in place afterwards (a CUDA graph's replay does). The copy is a
+synchronous ``.to("cpu")`` of every tensor, never a ``non_blocking`` copy
+into pinned memory, which the next replay could overtake. Every save first
+waits for the one in flight, so two saves never race on the pointer file;
+``wait()`` drains the last one, and the trainers call it before they return.
+A file of an async save holds the same tensors as a synchronous save's, not
+the same bytes: ``torch.save`` writes a serialization id of its own into
+every archive.
 
 In a process group only rank 0 writes (the JAX package's
 utils/checkpoint.py:119 and ``multihost.is_primary``); every rank loads, and
@@ -30,14 +42,32 @@ on every rank.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
+import threading
 from typing import Any, Optional, Tuple
 
 import torch
 
 from soft_intro_vae_torch.parallel.multihost import is_primary
+
+
+def to_host(tree: Any) -> Any:
+    """A copy of ``tree`` (dicts, lists, tuples, tensors, scalars) whose
+    tensors are new CPU tensors, copied synchronously; containers keep their
+    types, so the file is a synchronous save's."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):  # OrderedDict state_dicts keep their type and _metadata
+        out = type(tree)((k, to_host(v)) for k, v in tree.items())
+        if hasattr(tree, "_metadata"):
+            out._metadata = copy.deepcopy(tree._metadata)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(v) for v in tree)
+    return copy.deepcopy(tree)
 
 
 class Checkpointer:
@@ -46,6 +76,8 @@ class Checkpointer:
     def __init__(self, directory: str, prefix: str = ""):
         self.directory = directory
         self.prefix = prefix
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         if is_primary():
             os.makedirs(directory, exist_ok=True)
 
@@ -54,11 +86,24 @@ class Checkpointer:
         return os.path.join(self.directory, name)
 
     def save(self, state: Any, epoch: int, iteration: int = 0, tag: str = "",
-             aux: Optional[dict] = None) -> str:
+             aux: Optional[dict] = None, async_save: bool = False) -> str:
+        """Write ``state`` (and ``aux``) as checkpoint ``epoch``/``iteration``;
+        with ``async_save`` on a thread, from a host snapshot (module doc)."""
         path = self._path(epoch, iteration, tag)
         if not is_primary():
             return path
+        self.wait()
         payload = {**state.state_dict(), "epoch": epoch, "iteration": iteration}
+        if async_save:
+            payload, aux = to_host(payload), copy.deepcopy(aux)
+            self._thread = threading.Thread(target=self._write_in_thread,
+                                            args=(path, payload, aux), daemon=True)
+            self._thread.start()
+        else:
+            self._write(path, payload, aux)
+        return path
+
+    def _write(self, path: str, payload: dict, aux: Optional[dict]) -> None:
         tmp = path + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)
@@ -68,9 +113,24 @@ class Checkpointer:
             os.replace(path + ".aux.json.tmp", path + ".aux.json")
         with open(os.path.join(self.directory, self.POINTER), "w") as f:
             f.write(os.path.basename(path))
-        return path
+
+    def _write_in_thread(self, path: str, payload: dict, aux: Optional[dict]) -> None:
+        try:
+            self._write(path, payload, aux)
+        except Exception as e:  # raised again by wait(), in the caller's thread
+            self._error = e
+
+    def wait(self) -> None:
+        """Block until the save in flight is written; raise its error, if any."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("an async checkpoint save failed") from err
 
     def latest_path(self) -> Optional[str]:
+        self.wait()  # the pointer of a save in flight is not written yet
         ptr = os.path.join(self.directory, self.POINTER)
         if os.path.exists(ptr):
             with open(ptr) as f:

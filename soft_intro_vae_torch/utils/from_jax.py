@@ -200,6 +200,12 @@ def style_state_dict_from_jax(params_e: Mapping, params_d: Mapping,
     change. HWIO -> (out, in, kh, kw) for convs and (in, out, kh, kw) for the
     fused-upscale transposed convs; Dense (in, out) -> Linear (out, in);
     (C,) biases and noise weights -> (1, C, 1, 1); const NHWC -> NCHW.
+
+    The encoder variants' last block (EncoderWithStatistics, EncoderWithFC)
+    holds ``dense`` in place of conv_2/bias_2: its input rows cross the
+    flatten of the (4, 4, C) map, HWC-flat in JAX and CHW-flat here, so they
+    are permuted as the image encoder's ``fc`` rows are. EncoderWithFC's
+    ``fc2`` head is a plain lreq linear.
     """
     sd: Dict[str, torch.Tensor] = {}
     enc = params_e["encoder"]
@@ -209,10 +215,17 @@ def style_state_dict_from_jax(params_e: Mapping, params_d: Mapping,
         blk, name = enc[f"block_{i}"], f"encoder.encode_block.{i}"
         _lreq_conv(sd, name + ".conv_1", blk["conv_1"])
         sd[name + ".bias_1"] = _plane_param(blk["bias_1"])
-        _lreq_conv(sd, name + ".conv_2", blk["conv_2"])
-        sd[name + ".bias_2"] = _plane_param(blk["bias_2"])
+        if "dense" in blk:
+            kernel = np.asarray(blk["dense"]["kernel"])
+            rows = _hwc_to_chw(kernel.shape[0] // 16, 4)
+            _lreq_linear(sd, name + ".dense", {"kernel": kernel[rows], "bias": blk["dense"]["bias"]})
+        else:
+            _lreq_conv(sd, name + ".conv_2", blk["conv_2"])
+            sd[name + ".bias_2"] = _plane_param(blk["bias_2"])
         _lreq_linear(sd, name + ".style_1", blk["style_1"])
         _lreq_linear(sd, name + ".style_2", blk["style_2"])
+    if "fc2" in enc:
+        _lreq_linear(sd, "encoder.fc2", enc["fc2"])
 
     dec = params_d["decoder"]
     sd["decoder.const"] = _t(np.asarray(dec["const"]).transpose(0, 3, 1, 2))
@@ -234,4 +247,35 @@ def style_state_dict_from_jax(params_e: Mapping, params_d: Mapping,
         for i in range(len(tree)):
             _lreq_linear(sd, f"{name}.map_blocks.{i}.fc", tree[f"block_{i + 1}"])
     sd["dlatent_avg.buff"] = _t(buffers["dlatent_avg"])
+    return sd
+
+
+def mapping_no_style_state_dict_from_jax(params: Mapping,
+                                         prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX ``MappingToLatentNoStyle`` tree -> the port's module's
+    state_dict: ``block_{i+1}`` -> the reference's bare ``map_blocks.{i}``
+    (the inverse of ``convert_mapping(..., bare_linear=True)``,
+    soft_intro_vae_tpu/utils/torch_compat.py:313-322)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(params)):
+        _lreq_linear(sd, f"{prefix}map_blocks.{i}", params[f"block_{i + 1}"])
+    return sd
+
+
+def dcgan_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                              kind: str) -> Dict[str, torch.Tensor]:
+    """A JAX ``DCGANGenerator`` (``kind="generator"``) or ``DCGANEncoder``
+    (``"encoder"``) tree -> the port's net's state_dict (models/dcgan.py):
+    ``deconv{i}``/``conv{i}`` and ``bn{i}`` -> ``main.{3 i}`` and
+    ``main.{3 i + 1}``. flax's ``ConvTranspose(transpose_kernel=True)`` keeps
+    the kernel of the forward convolution it is the gradient of, (kh, kw,
+    out, in), as torch's ConvTranspose2d keeps that convolution's (in, out,
+    kh, kw): the same permutation as a conv kernel's."""
+    conv = "deconv" if kind == "generator" else "conv"
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(4):
+        sd[f"main.{3 * i}.weight"] = _conv_oihw(params[f"{conv}{i}"]["kernel"])
+        sd[f"main.{3 * i}.bias"] = _t(params[f"{conv}{i}"]["bias"])
+        if i < 3:
+            _bn(sd, f"main.{3 * i + 1}", params[f"bn{i}"], batch_stats[f"bn{i}"])
     return sd

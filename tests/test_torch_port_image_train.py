@@ -187,11 +187,12 @@ def test_sample_grids_and_the_no_matplotlib_rule(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("num_devices", 2, "item 11"), ("remat", True, "item 13"),
+    ("num_devices", 2, "item 11"),
 ])
 def test_options_of_later_slices_raise(tmp_path, field, value, item):
     cfg = _cfg(tmp_path, **{field: value})
-    # item 11 (data parallelism) is ported: num_devices must be the world size
+    # item 11 (data parallelism) is ported: num_devices must be the world size;
+    # so is item 13's remat (tests/test_torch_port_remat.py)
     err, match = ((ValueError, "num_devices=2 but the world has 1") if field == "num_devices"
                   else (NotImplementedError, f"ROADMAP.md Queue 1, {item}"))
     with pytest.raises(err, match=match):

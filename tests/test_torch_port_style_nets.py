@@ -152,8 +152,8 @@ def test_bf16_conv_path_keeps_f32_heads(pair):
 
 
 def test_other_encoder_variants_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StyleModel(StyleModelConfig(encoder_variant="EncoderWithFC"))
+    # EncoderWithFC and EncoderWithStatistics are ported
+    # (tests/test_torch_port_style_encoders.py); an unknown name still raises
     with pytest.raises(ValueError, match="unknown"):
         StyleModel(StyleModelConfig(encoder_variant="Nope"))
 

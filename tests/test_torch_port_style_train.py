@@ -152,15 +152,15 @@ def test_entry_points_default_to_cuda(tmp_path):
         train_style_soft_intro_vae(dataclasses.replace(_cfg(tmp_path), device="cuda"))
 
 
-@pytest.mark.parametrize("change", [dict(num_devices=2), dict(remat=True),
+@pytest.mark.parametrize("change", [dict(num_devices=2),
                                     dict(use_synthetic=False, dataset_path="r%02d.tfrecords")],
-                         ids=["data-parallel", "remat", "tfrecords"])
+                         ids=["data-parallel", "tfrecords"])
 def test_unported_options_name_their_roadmap_item(tmp_path, change):
     # data parallelism is ported: num_devices must be the world size; so is
-    # TFRecord streaming: DATASET.PATH needs two %-fields, the level and the part
+    # TFRecord streaming: DATASET.PATH needs two %-fields, the level and the
+    # part; and TRAIN.REMAT (tests/test_torch_port_remat.py)
     err, match = ((ValueError, "num_devices=2 but the world has 1") if "num_devices" in change
-                  else (ValueError, "two %-fields") if "dataset_path" in change
-                  else (NotImplementedError, "ROADMAP"))
+                  else (ValueError, "two %-fields"))
     with pytest.raises(err, match=match):
         train_style_soft_intro_vae(_cfg(tmp_path, **change))
 
