@@ -28,15 +28,22 @@ Phases, each printing one line; any failure exits non-zero:
   5. train style: ``train_style_soft_intro_vae`` at the full width of
               configs/ffhq256.yaml (7 blocks, 64->512 channels, latent 512,
               bf16) at LOD 6 (256x256, batch 4) on synthetic images, one
-              vanilla and one intro epoch, every kernel's launch count read
-              around it and held to the count the steps imply;
-  6. step style: ms per LOD-6 intro step after warm-up; the first warm-up
+              vanilla and one intro epoch, each step a replay of the epoch's
+              CUDA graph after 3 eager warm-up steps and its capture; every
+              kernel's launch count on the device read around it and held to
+              the count the steps imply, and the launches each capture
+              recorded to one step's;
+  6. step style: ms per LOD-6 eager intro step after warm-up; the first warm-up
               step records its fused-norm launches by site, and each site is
               then timed alone in bf16 and f32: per-step kernel ms against the
               per-step bound;
   7. routes style: one f32 intro step through the kernels against one
               through the plain version, from the same weights and draws;
-  8. transition style: LOD 0 -> 1 through a blended epoch;
+  8. transition style: LOD 0 -> 1 through a blended epoch, 4 steps of batch
+              128 an epoch, so each of the 3 (LOD, blended, phase) graphs is
+              captured and replayed; the same run with eager steps, every
+              tensor and the epoch means bit-equal under exact routes; peak
+              device memory of both;
   8b. stream: the port's prepare_tfrecords writes 16 seeded 256x256 images as
               per-LOD shards (levels 2-8, 2 parts); the native reader (built
               with g++ from soft_intro_vae_torch/native/) and the Python
@@ -95,14 +102,25 @@ Phases, each printing one line; any failure exits non-zero:
               final checkpoint at full width: shapes and finite values, and
               f32 samples through the kernels against the plain norm route;
  8d. remat style: TRAIN.REMAT at that width, LOD 6: one vanilla and one
-              intro epoch of ``train_style_soft_intro_vae``, fused-norm
-              launches held to ``style_step_launches(..., remat=True)``; one
-              f32 intro step with remat against one without (batch noise,
-              style mixing, deterministic routes) bit-equal, generator state
-              included; ms/step and peak device memory, remat off and on;
+              intro epoch of ``train_style_soft_intro_vae`` (graphed),
+              fused-norm launches held to ``style_step_launches(...,
+              remat=True)``; one f32 intro step with remat against one without
+              (batch noise, style mixing, deterministic routes) bit-equal,
+              generator state included;
  8e. encoders: one f32 LOD-6 intro step with MODEL.ENCODER
               EncoderWithStatistics and EncoderWithFC, kernel route against
               plain route;
+ 8f. graph style: the trainer's route (train/graph.py ``one_step``) against
+              the eager step at that width, LOD 6, batch 4, bf16, TF32 off
+              and deterministic routes: 8 intro steps from one seed (3 eager
+              warm-up steps, a capture, 5 replays) stable, blended (8 blends
+              from the LOD driver) and with TRAIN.REMAT; every metric,
+              parameter, EMA tensor, dlatent_avg, LREQAdam moment and count
+              and the generator's state bit-equal; fused-norm launches
+              recorded in the capture (one step's) and on the device (8
+              steps'); then, stable, remat off and on, ms/step graphed and
+              eager (median of three 10-step windows), device busy time from
+              a trace and peak device memory;
  12b. remat image: the image step with ``remat`` at scan_steps 8, graph
               calls against eager remat steps and against graphed steps
               without remat, all bit-equal under deterministic routes; u8norm
@@ -118,7 +136,11 @@ Phases, each printing one line; any failure exits non-zero:
               graphs, their counts on the device; graphed against eager
               distributed steps, bit-equal; the route's losses against the
               non-distributed route's (cuDNN BN) over one step; ms/step of
-              both routes and NCCL's kernels a step; (b) two ranks on the card
+              both routes and NCCL's kernels a step; the LOD-6 style intro
+              step graphed on that route, its collectives (a gradient reduce
+              a phase, dlatent_avg's style mean a generate, the metrics)
+              recorded in the capture, 5 steps bit-equal to eager ones; (b)
+              two ranks on the card
               over gloo (eager), spawned by parallel/launch.py, against one
               rank: the image, 3D and style probes (parallel/verify.py) at
               their recipes' widths, the ranks bit-equal. Each destroys its
@@ -139,6 +161,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -620,6 +643,13 @@ def read_counts() -> dict:
     return {k: v - graph.captured[k] + graph.replayed[k] for k, v in graph.wrapper_counts().items()}
 
 
+def captured_graphs() -> int:
+    """CUDA graphs captured in this process so far (train/graph.py)."""
+    from soft_intro_vae_torch.train import graph
+
+    return graph.captures
+
+
 def captured_counts() -> dict:
     """Kernel launches recorded into CUDA graph captures since reset_counts."""
     from soft_intro_vae_torch.train import graph
@@ -745,22 +775,27 @@ def compare_runs(a, b):
 
 
 @contextlib.contextmanager
-def exact_routes(deterministic_algorithms: bool = False):
+def exact_routes(deterministic_algorithms: bool = False, fill_uninitialized: bool = True):
     """TF32 off and cuDNN deterministic, for comparing two routes bit for bit;
     with ``deterministic_algorithms`` also PyTorch's deterministic kernels
     where it has them (the chamfer backward's ``scatter_add_`` sums with
     atomics otherwise, in no fixed order, so two eager 3D steps differ in the
     last bits), warning only for cuBLAS, which is deterministic on one stream
-    and one workspace size."""
+    and one workspace size. That mode also fills every new tensor
+    (``torch.utils.deterministic.fill_uninitialized_memory``), a kernel an
+    allocation; ``fill_uninitialized=False`` leaves them unfilled, for steps
+    that are timed as well."""
     import warnings
 
     import torch
 
     saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled())
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.utils.deterministic.fill_uninitialized_memory)
     torch.backends.cudnn.deterministic = True
     if deterministic_algorithms:
         torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = fill_uninitialized
     try:
         with no_tf32(), warnings.catch_warnings():
             warnings.filterwarnings("ignore", message=".*CuBLAS.*")
@@ -768,6 +803,7 @@ def exact_routes(deterministic_algorithms: bool = False):
     finally:
         torch.backends.cudnn.deterministic = saved[0]
         torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+        torch.utils.deterministic.fill_uninitialized_memory = saved[3]
 
 
 def graph_against_eager(build, xs, scan: int):
@@ -864,7 +900,7 @@ def phase_graph_image(device):
 STYLE_YAML = os.path.join(ROOT, "configs", "ffhq256.yaml")
 STYLE_TRAIN_OPTS = ["DATASET.SYNTHETIC", "true", "DATASET.SYNTHETIC_N", "16",
                     "TRAIN.EPOCHS_PER_LOD", "0", "TRAIN.TRAIN_EPOCHS", "2"]
-STYLE_TRANSITION_OPTS = ["DATASET.SYNTHETIC", "true", "DATASET.SYNTHETIC_N", "128",
+STYLE_TRANSITION_OPTS = ["DATASET.SYNTHETIC", "true", "DATASET.SYNTHETIC_N", "512",
                          "TRAIN.EPOCHS_PER_LOD", "2", "TRAIN.TRAIN_EPOCHS", "3"]
 # kernel route against plain route, one f32 intro step without TF32: loss_e
 # comes from forwards before any update, so it agrees to f32 sums in another
@@ -923,12 +959,16 @@ def phase_style_train(device, card: str, results_dir: str):
     state, summary = train_style_soft_intro_vae(cfg)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts = read_counts()
+    counts, captured = read_counts(), captured_counts()
     want_fwd, want_bwd = style_step_launches(cfg.layer_count - 1, steps, steps)
     check(counts["bias_act_norm_fwd"] == want_fwd and counts["bias_act_norm_bwd"] == want_bwd,
           f"fused-norm launches {counts}, expected forward {want_fwd}, backward {want_bwd}")
     check(counts["chamfer_nearest"] == counts["u8norm"] == 0,
           f"the style path launched chamfer or u8norm: {counts}")
+    per_graph = [style_step_launches(cfg.layer_count - 1, v, 1 - v) for v in (1, 0)]
+    check((captured.get("bias_act_norm_fwd"), captured.get("bias_act_norm_bwd"))
+          == tuple(map(sum, zip(*per_graph))),
+          f"the vanilla and intro graphs recorded {captured}, expected {per_graph}")
     check(summary["epochs_run"] == 2 and summary["steps"] == 2 * steps and state.step == 2 * steps,
           f"style run: {summary['epochs_run']} epochs, {summary['steps']} steps")
     last = summary["last_metrics"]
@@ -941,23 +981,29 @@ def phase_style_train(device, card: str, results_dir: str):
           f"(256x256), batch {batch}: {steps} vanilla + {steps} intro steps and 3 checkpoints "
           f"in {run_s:.2f} s (first call, warm-up included); loss_e {last['loss_e']:.6g}, "
           f"loss_d {last['loss_d']:.6g}, rec_loss {last['rec_loss']:.6g}; bias_act_norm "
-          f"launches fwd {counts['bias_act_norm_fwd']} / bwd {counts['bias_act_norm_bwd']} "
-          f"(expected {want_fwd} / {want_bwd}); peak device memory {peak_gb:.2f} GB; "
-          f"on {card}", flush=True)
+          f"launches on the device fwd {counts['bias_act_norm_fwd']} / bwd "
+          f"{counts['bias_act_norm_bwd']} (expected {want_fwd} / {want_bwd}; each epoch 3 eager "
+          f"warm-up steps, a graph capture recording {per_graph[0]} vanilla and {per_graph[1]} "
+          f"intro launches, replays); peak device memory {peak_gb:.2f} GB; on {card}",
+          flush=True)
     return cfg, counts
 
 
-def _style_batches(cfg, device, n: int):
+def _style_batches(cfg, device, n: int, blends=None):
+    """``n`` LOD-6 batches on the card; with ``blends``, batch i blended with
+    its half-resolution input by ``blends[i]``, as the trainer's transition
+    feed does."""
     from soft_intro_vae_torch.train.style import MultiResImages, _Feed
 
     res = 2 ** (cfg.layer_count + 1)
     batch = cfg.lod_2_batch_tables["1GPU"][cfg.layer_count - 1]
     images = MultiResImages.synthetic(batch * n, res, seed=5).at_resolution(res)
     feed = _Feed(device)
-    return [feed(images[i * batch:(i + 1) * batch], 1.0, False) for i in range(n)]
+    return [feed(images[i * batch:(i + 1) * batch], 1.0 if blends is None else blends[i],
+                 blends is not None) for i in range(n)]
 
 
-def _style_intro(cfg, noise_mode="batch"):
+def _style_intro(cfg, noise_mode="batch", blended: bool = False):
     from soft_intro_vae_torch.train.style import build_style_training
     from soft_intro_vae_torch.train.style_step import StyleStepConfig, build_style_steps
 
@@ -966,8 +1012,99 @@ def _style_intro(cfg, noise_mode="batch"):
     scfg = StyleStepConfig(latent_size=cfg.latent_space_size, beta_rec=cfg.beta_rec,
                            beta_kl=cfg.beta_kl, beta_neg=float(cfg.beta_neg[lod]),
                            scale=cfg.scale)
-    _, intro = build_style_steps(model, scfg, lod, False, noise_mode)
+    _, intro = build_style_steps(model, scfg, lod, blended, noise_mode)
     return state, intro
+
+
+def style_snapshot(state, metrics) -> dict:
+    """Every tensor a style run leaves, cloned: each step's metrics, the nets
+    and their EMA (dlatent_avg included), LREQAdam's counts and moments, the
+    generator's state, and the step count."""
+    def nets(n):
+        return {k: v.detach().clone() for k, v in n.state_dict().items()}
+
+    def adam(o):
+        return {"count": o.count.clone(), "nu": [v.clone() for v in o.nu]}
+
+    return {"metrics": [{k: v.detach().clone() for k, v in m.items()} for m in metrics],
+            "nets": nets(state.nets), "ema": nets(state.ema), "opt_e": adam(state.opt_e),
+            "opt_d": adam(state.opt_d), "generator": state.generator.get_state(),
+            "step": state.step}
+
+
+def style_graph_against_eager(cfg, xs, blends, blended: bool, timed: bool = False):
+    """The same seed's state twice: the LOD-6 intro step on ``xs`` with
+    ``blends`` through ``one_step`` (3 eager warm-up steps, a capture, the
+    rest replays) and eagerly. Returns the graphed run's device launches and
+    captures, how many tensors of the two runs' snapshots (taken on the host
+    after the steps) were compared, the names of those that differ, and with
+    ``timed`` each route's (median ms/step of TIMED_WINDOWS windows of
+    TIMED_STEPS steps on the first batch, the windows, peak device memory in
+    GiB over the run, the memory allocated as it began, (device busy ms,
+    device operations) a step from a trace of STYLE_TRACED_STEPS steps), by
+    route."""
+    import torch
+
+    from soft_intro_vae_torch.train.graph import one_step
+    from soft_intro_vae_torch.utils.checkpoint import to_host
+
+    snaps, times = [], {}
+    for graphed in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(xs[0].device)
+        base = torch.cuda.memory_allocated(xs[0].device) / 2**30
+        state, intro = _style_intro(cfg, blended=blended)
+        step = one_step(intro) if graphed else intro
+        reset_counts()
+        ms = [step(state, x, b)[1] for x, b in zip(xs, blends)]
+        torch.cuda.synchronize()
+        if graphed:
+            counts, captured = read_counts(), captured_counts()
+            check(len(step.graphed.graphs) == 1, f"{len(step.graphed.graphs)} graphs captured")
+        snaps.append(to_host(style_snapshot(state, ms)))
+        if timed:
+            windows = []
+            for _ in range(TIMED_WINDOWS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(TIMED_STEPS):
+                    m = step(state, xs[0], blends[0])[1]  # holds no second name for the state
+                torch.cuda.synchronize()
+                windows.append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
+            check(all(math.isfinite(float(v)) for v in m.values()),
+                  "non-finite loss in timed style steps")
+            peak = torch.cuda.max_memory_allocated(xs[0].device) / 2**30
+            busy = device_busy(lambda: step(state, xs[0], blends[0]), STYLE_TRACED_STEPS)
+            times["graphed" if graphed else "eager"] = (
+                sorted(windows)[len(windows) // 2], windows, peak, base, busy)
+        del state, intro, step, ms
+        torch.cuda.empty_cache()
+    differ = []
+    compared = _tensors_equal(snaps[0], snaps[1], "style", differ)
+    return counts, captured, compared, differ, times
+
+
+def device_busy(fn, calls: int):
+    """(device busy ms, device operations) a call of ``fn``, from a
+    torch.profiler trace of the device alone over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.torch_profile_toy import device_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy, ops = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            busy += device_us(evt) / 1e3
+            ops += evt.count
+    check(busy > 0, "the trace holds no device time")
+    return busy / calls, ops / calls
 
 
 @contextlib.contextmanager
@@ -1104,15 +1241,46 @@ def phase_style_routes(device, cfg):
 
 
 def phase_style_transition(device, results_dir: str):
-    """LODs 0 -> 1 with a blended epoch: EPOCHS_PER_LOD 2, TRAIN_EPOCHS 3."""
+    """LODs 0 -> 1 with a blended epoch: EPOCHS_PER_LOD 2, TRAIN_EPOCHS 3, 4
+    steps of batch 128 an epoch, so each of the three (LOD, blended, phase)
+    graphs is captured after its 3 warm-up steps and replayed; then the same
+    run with the steps eager: every tensor bit-equal under exact routes, and
+    the peak device memory of both."""
     import torch
 
-    from soft_intro_vae_torch.train.style import train_style_soft_intro_vae
+    from soft_intro_vae_torch.train import style
+    from soft_intro_vae_torch.utils.checkpoint import to_host
 
     cfg = style_config(device, results_dir, STYLE_TRANSITION_OPTS)
-    t0 = time.perf_counter()
-    state, summary = train_style_soft_intro_vae(cfg)
-    torch.cuda.synchronize()
+    runs, peaks, seconds = [], [], []
+    one_step = style.one_step
+    for graphed in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        before = captured_graphs()
+        t0 = time.perf_counter()
+        style.one_step = one_step if graphed else (lambda step: step)
+        try:
+            with exact_routes(deterministic_algorithms=True):
+                state, summary = style.train_style_soft_intro_vae(
+                    dataclasses.replace(cfg, output_dir=os.path.join(results_dir, str(graphed))))
+            torch.cuda.synchronize()
+        finally:
+            style.one_step = one_step
+        seconds.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated(device) / 2**30)
+        check((captured_graphs() - before == 3) == graphed,
+              f"transition run (graphed {graphed}): {captured_graphs() - before} graphs captured")
+        runs.append((to_host(style_snapshot(state, [])), summary, int(state.opt_e.count)))
+        del state
+        torch.cuda.empty_cache()
+    _, summary, count = runs[0]
+    differ = []
+    compared = _tensors_equal(runs[0][0], runs[1][0], "transition", differ)
+    check(not differ and runs[0][1]["last_metrics"] == runs[1][1]["last_metrics"],
+          f"transition graphed against eager: {len(differ)} of {compared} tensors differ "
+          f"(first {differ[:6]}); metrics {runs[0][1]['last_metrics']} vs "
+          f"{runs[1][1]['last_metrics']}")
     last = summary["last_metrics"]
     # epoch 2 is the first half of LOD 1's cycle: every one of its steps blends
     epoch2 = cfg.synthetic_n // cfg.lod_2_batch_tables["1GPU"][1]
@@ -1121,11 +1289,13 @@ def phase_style_transition(device, results_dir: str):
           f"transition: {summary['blended_steps']} blended of {summary['steps']} steps, "
           f"expected {epoch2}")
     check(all(math.isfinite(v) for v in last.values()), f"non-finite metrics: {last}")
-    check(state.opt_e.count == epoch2,
-          f"optimizer not reset on the LOD switch: count {state.opt_e.count}")
+    check(count == epoch2, f"optimizer not reset on the LOD switch: count {count}")
     print(f"transition style: epochs 0-1 at LOD 0 (4x4), epoch 2 at LOD 1 (8x8) "
-          f"blended in {summary['blended_steps']} steps, optimizer reset on the switch; "
-          f"{time.perf_counter() - t0:.2f} s; loss_e {last['loss_e']:.6g}", flush=True)
+          f"blended in {summary['blended_steps']} steps of batch 128, optimizer reset on the "
+          f"switch, 3 graphs captured; loss_e {last['loss_e']:.6g}; graphed against eager steps "
+          f"(TF32 off, deterministic): all {compared} tensors and the epoch means bit-equal; "
+          f"peak device memory graphed {peaks[0]:.3f} GiB, eager {peaks[1]:.3f} GiB; "
+          f"{seconds[0]:.2f} s graphed, {seconds[1]:.2f} s eager", flush=True)
 
 
 # the stream phase: per-LOD TFRecord shards written by the port's
@@ -2089,6 +2259,18 @@ def dp_nccl_world_one(device, card: str, results_dir: str) -> str:
         (nccl_launches, nccl_ms, u8_seen), plain_nccl = ms["dp"][2], ms["plain"][2]
         check(plain_nccl[0] == 0, f"{plain_nccl[0]} NCCL kernels a step off the dp route")
         calls = {k: v for k, v in collectives.calls.items()}
+
+        # the style trainer's graph on the distributed route: its collectives captured
+        scfg = style_config(device, "", STYLE_TRAIN_OPTS)
+        xs = _style_batches(scfg, device, 5)
+        with exact_routes(deterministic_algorithms=True):
+            _, s_captured, s_compared, s_differ, _ = style_graph_against_eager(
+                scfg, xs, [1.0] * len(xs), False)
+        check(not s_differ, f"dp style graph against eager: {len(s_differ)} of {s_compared} "
+              f"tensors differ (first {s_differ[:6]})")
+        s_nccl = {k: v for k, v in s_captured.items() if k.startswith("nccl_")}
+        check(s_nccl == {"nccl_grads": 2, "nccl_dlatent": 8, "nccl_metrics": 1},
+              f"the style intro capture recorded collectives {s_nccl}")
     finally:
         multihost.shutdown()
     check(not torch.distributed.is_initialized(), "the NCCL group was not destroyed")
@@ -2104,7 +2286,11 @@ def dp_nccl_world_one(device, card: str, results_dir: str) -> str:
             f"{DP_RTOL_ROUTES:g}); intro ms/step at scan {IMAGE_SCAN}: {timing}; NCCL kernels a "
             f"step {nccl_launches:.1f}, {nccl_ms:.4f} ms (torch.profiler over 2 calls, "
             f"{u8_seen} of {2 * IMAGE_SCAN} u8norm launches in the trace); "
-            f"collective calls in this process {sum(calls.values())}; on {card}")
+            f"collective calls in this process {sum(calls.values())}; the style intro step "
+            f"(ffhq256 width, LOD 6, batch 4, bf16) graphed on this route: collectives recorded "
+            f"in its capture {s_nccl} (a gradient reduce a phase, dlatent_avg's style mean a "
+            f"generate, the metrics), 5 steps against eager, all {s_compared} tensors bit-equal; "
+            f"on {card}")
 
 
 def dp_gloo_two_ranks(device, card: str, results_dir: str) -> str:
@@ -2208,7 +2394,8 @@ def phase_dp(device, card: str, results_dir: str):
 
 # this slice's phases: activation checkpointing (remat), the encoder variants,
 # the figures and async checkpoint saves
-REMAT_STYLE_STEPS = 5  # timed steps a window, remat off and on, after 2 warm-up steps
+GRAPH_STYLE_STEPS = 8  # graph style: intro steps a run (3 warm-up, a capture, 5 replays)
+STYLE_TRACED_STEPS = 2  # graph style: steps traced for the device's busy time
 ASYNC_N = 640          # images of the async-save run: 20 steps an epoch, chunks 8, 8 and 4
 
 
@@ -2294,32 +2481,6 @@ def phase_remat_image(device, card: str):
     return timed
 
 
-def _style_timed(cfg, device, remat: bool):
-    """LOD-6 intro steps with and without remat: (median ms/step, windows,
-    peak device memory in GiB) after 2 warm-up steps."""
-    import torch
-
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(device)
-    state, intro = _style_intro(dataclasses.replace(cfg, remat=remat))
-    batches = _style_batches(cfg, device, 4)
-    for i in range(2):
-        state, m = intro(state, batches[i])
-    windows = []
-    for _ in range(TIMED_WINDOWS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(REMAT_STYLE_STEPS):
-            state, m = intro(state, batches[i % 4])
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) * 1e3 / REMAT_STYLE_STEPS)
-    check(all(math.isfinite(float(v)) for v in m.values()), "non-finite loss in timed remat steps")
-    peak = torch.cuda.max_memory_allocated(device) / 2**30
-    del state, intro, batches
-    torch.cuda.empty_cache()
-    return sorted(windows)[len(windows) // 2], windows, peak
-
-
 def phase_remat_style(device, card: str, results_dir: str):
     """TRAIN.REMAT at ffhq256 width, LOD 6, batch 4: the trainer's vanilla and
     intro epoch with the remat launch count; one f32 intro step with remat
@@ -2367,18 +2528,75 @@ def phase_remat_style(device, card: str, results_dir: str):
     check(not differ, f"style remat on against off: {len(differ)} of {compared} tensors differ "
           f"(first {differ[:6]})")
     del runs
-    timed = {r: _style_timed(cfg, device, r) for r in (False, True)}
     print(f"remat style: ffhq256 width, LOD 6, batch 4, bf16, TRAIN.REMAT (encoder + mapping_tl "
-          f"and the decoder checkpointed): {steps} vanilla + {steps} intro steps in {run_s:.2f} s; "
-          f"bias_act_norm launches fwd {counts['bias_act_norm_fwd']} / bwd "
-          f"{counts['bias_act_norm_bwd']} (expected {want[0]} / {want[1]}: each forward with a "
-          f"gradient recomputed); one f32 intro step with remat against one without, batch noise "
-          f"and mixing on, TF32 off, deterministic: all {compared} tensors bit-equal (metrics, "
-          f"nets, EMA, generator state); intro step after warm-up, {REMAT_STYLE_STEPS}-step "
-          f"windows: " + "; ".join(
-              f"remat {'on' if r else 'off'} {ms:.3f} ms/step (median of "
-              f"{'/'.join(f'{w:.3f}' for w in ws)}), peak device memory {gib:.3f} GiB"
-              for r, (ms, ws, gib) in timed.items()) + f"; on {card}", flush=True)
+          f"and the decoder checkpointed): {steps} vanilla + {steps} intro steps in {run_s:.2f} s "
+          f"(graphed); bias_act_norm launches on the device fwd {counts['bias_act_norm_fwd']} / "
+          f"bwd {counts['bias_act_norm_bwd']} (expected {want[0]} / {want[1]}: each forward with "
+          f"a gradient recomputed); one f32 intro step with remat against one without, batch "
+          f"noise and mixing on, TF32 off, deterministic: all {compared} tensors bit-equal "
+          f"(metrics, nets, EMA, generator state); timed in the graph style phase; on {card}",
+          flush=True)
+
+
+def phase_graph_style(device, card: str):
+    """The style trainer's route on the card, ``one_step`` (one CUDA graph a
+    (LOD, blended, phase, batch shape)), against the eager step at ffhq256
+    width, LOD 6, batch 4, bf16, under exact routes: GRAPH_STYLE_STEPS intro
+    steps from one seed, stable, blended (a blend a step from the LOD
+    driver) and with TRAIN.REMAT, every tensor bit-equal; fused-norm launches
+    recorded in the capture and on the device; then ms/step graphed and
+    eager, remat off and on, with peak device memory and device busy time."""
+    from soft_intro_vae_torch.train.lod import LODDriver
+
+    t0 = time.perf_counter()
+    cfg = style_config(device, "", STYLE_TRAIN_OPTS)
+    lod = cfg.layer_count - 1
+    batch = cfg.lod_2_batch_tables["1GPU"][lod]
+    n = GRAPH_STYLE_STEPS
+    driver = LODDriver(lod_2_batch=cfg.lod_2_batch_tables["1GPU"], epochs_per_lod=2,
+                       layer_count=cfg.layer_count, dataset_size=n * batch)
+    driver.set_epoch(2 * lod)
+    blends = [driver.blend_factor_at(i * batch) for i in range(n)]
+    check(driver.lod == lod and driver.in_transition and len(set(blends)) == n
+          and max(blends) < 1.0, f"LOD driver: lod {driver.lod}, blends {blends}")
+    cases = (("stable", cfg, _style_batches(cfg, device, n), [1.0] * n, False),
+             ("blended", cfg, _style_batches(cfg, device, n, blends), blends, True),
+             ("remat", dataclasses.replace(cfg, remat=True), _style_batches(cfg, device, n),
+              [1.0] * n, False))
+    parts, timed = [], {}
+    for name, c, xs, bs, blended in cases:
+        with exact_routes(deterministic_algorithms=True, fill_uninitialized=False):
+            counts, captured, compared, differ, times = style_graph_against_eager(
+                c, xs, bs, blended, timed=not blended)
+        if times:
+            timed[c.remat] = times
+        check(not differ, f"graph style {name}: {len(differ)} of {compared} tensors differ "
+              f"from the eager steps (first {differ[:6]})")
+        per_step = style_step_launches(lod, 0, 1, remat=c.remat)
+        want = style_step_launches(lod, 0, n, remat=c.remat)
+        got = (counts["bias_act_norm_fwd"], counts["bias_act_norm_bwd"])
+        rec = (captured.get("bias_act_norm_fwd"), captured.get("bias_act_norm_bwd"))
+        check(got == want and rec == per_step,
+              f"graph style {name}: fused-norm launches on the device {got} (expected {want}), "
+              f"recorded in the capture {rec} (expected {per_step})")
+        parts.append(f"{name}: all {compared} tensors bit-equal, fused-norm launches captured "
+                     f"{rec[0]} / {rec[1]}, on the device {got[0]} / {got[1]}")
+
+    def cell(remat, route):
+        ms, ws, gib, base, (busy, ops) = timed[remat][route]
+        return (f"{route} {ms:.3f} ms/step (median of "
+                f"{'/'.join(f'{w:.3f}' for w in ws)}), device busy {busy:.3f} ms/step (idle "
+                f"{1 - busy / ms:.1%}), {ops:.0f} device operations a step, peak {gib:.3f} GiB "
+                f"({base:.3f} allocated before the state was built)")
+    print(f"graph style: ffhq256 width, LOD 6, batch {batch}, bf16, TF32 off, cuDNN and PyTorch "
+          f"deterministic (new tensors unfilled): {n} intro steps through one_step (3 eager warm-up steps, a capture, "
+          f"{n - 3} replays) against {n} eager steps from the same seed; " + "; ".join(parts)
+          + f" (blends {', '.join(f'{b:.4f}' for b in blends)}); stable intro step after "
+          f"those {n}, {TIMED_STEPS}-step windows, busy time from a device trace of "
+          f"{STYLE_TRACED_STEPS} steps, peak memory over the run: " + "; ".join(
+              f"remat {'on' if r else 'off'}: {cell(r, 'graphed')}, {cell(r, 'eager')}"
+              for r in (False, True)) + f"; {time.perf_counter() - t0:.2f} s on {card}",
+          flush=True)
     return timed
 
 
@@ -2575,6 +2793,8 @@ def main() -> int:
         phase_remat_style(device, card, results_dir)
     phase_encoders(device, cfg)
     lap("remat style and encoders")
+    phase_graph_style(device, card)
+    lap("graph style")
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_stream(device, card, results_dir, resident_ms)
     lap("stream")

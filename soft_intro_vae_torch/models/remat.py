@@ -35,6 +35,18 @@ The nets draw nothing from the default generators, so ``preserve_rng_state``
 is off: it would read the CUDA generator's state, which a CUDA graph's
 capture (train/graph.py) does not allow.
 
+**An explicit generator under a CUDA graph.** A capture can neither read
+nor set a CUDA generator's state (``get_state``, ``set_state``,
+``get_offset``). ``Restarts`` carries the restart across: in an eager
+warm-up step of the graph (``recording``) each checkpointed call notes its
+generator's offset relative to the step's start, the same in every step of
+one program; before the capture the graph clones the generator's state once
+a call (``clone_state``) and registers the clones with the graph; under the
+capture (``capturing``) call i's recompute swaps the generator onto clone i
+(``graphsafe_set_state``) and back. Before each replay the graph sets clone
+i to the generator's seed and offset plus call i's, so the recompute draws
+what the forward drew, and the generator ends where the eager step leaves it.
+
 A forward whose inputs and parameters need no gradient (the E phase's
 ``fake = dec(noise)`` with the decoder frozen) saves nothing for a backward
 and is never recomputed; under ``torch.no_grad`` ``fn`` runs as it is.
@@ -44,7 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
@@ -91,28 +103,99 @@ def _in_frame(frame: Frame, replaying: bool):
         _local.frame = saved
 
 
+class Restarts:
+    """The generator restarts of one step's checkpointed calls, for a CUDA
+    graph of the step (module doc): ``offsets`` from an eager step, the
+    graph's ``states`` under its capture."""
+
+    def __init__(self):
+        self.offsets: List[int] = []
+        self.states: Sequence[torch.Generator] = ()
+        self.capturing = False
+        self._base = 0
+        self._used = 0
+
+    def note(self, generator: torch.Generator) -> None:
+        self.offsets.append(generator.get_offset() - self._base)
+
+    def take(self) -> torch.Generator:
+        if self._used >= len(self.states):
+            raise RuntimeError(f"the capture ran more than the {len(self.states)} checkpointed "
+                               f"calls with a generator of the eager steps")
+        self._used += 1
+        return self.states[self._used - 1]
+
+
+def _restarts() -> Optional[Restarts]:
+    return getattr(_local, "restarts", None)
+
+
+@contextlib.contextmanager
+def _with_restarts(r: Restarts):
+    _local.restarts = r
+    try:
+        yield r
+    finally:
+        _local.restarts = None
+
+
+def recording(generator: torch.Generator):
+    """Around an eager step: ``Restarts`` whose ``offsets`` hold each
+    checkpointed call's generator offset from the step's start."""
+    r = Restarts()
+    r._base = generator.get_offset()
+    return _with_restarts(r)
+
+
+@contextlib.contextmanager
+def capturing(states: Sequence[torch.Generator]):
+    """Around a capture: call i's recompute draws from ``states[i]``, which
+    the graph registered; raises unless every state was taken."""
+    r = Restarts()
+    r.states, r.capturing = states, True
+    with _with_restarts(r):
+        yield r
+    if r._used != len(states):
+        raise RuntimeError(f"the capture ran {r._used} checkpointed calls with a generator, "
+                           f"the eager steps {len(states)}")
+
+
 def checkpoint(fn: Callable, *args, generator: Optional[torch.Generator] = None):
     """``fn(*args)``, its activations recomputed in the backward (module doc)."""
     frame = Frame()
-    start = []  # the generator's state as the forward began
+    start = []  # the generator's state as the forward began, or its clone under a capture
+    restarts = _restarts() if generator is not None else None
 
     @contextlib.contextmanager
     def forward_ctx():
-        if generator is not None:
+        if restarts is not None and restarts.capturing:
+            start.append(restarts.take())
+        elif generator is not None:
             start.append(generator.get_state())
+            if restarts is not None:
+                restarts.note(generator)
         with _in_frame(frame, replaying=False):
             yield
 
     @contextlib.contextmanager
     def recompute_ctx():
-        after = generator.get_state() if generator is not None else None
-        if generator is not None:
+        if generator is None:
+            with _in_frame(frame, replaying=True):
+                yield
+            return
+        graphed = isinstance(start[0], torch.Generator)
+        after = generator.graphsafe_get_state() if graphed else generator.get_state()
+        if graphed:
+            generator.graphsafe_set_state(start[0])
+        else:
             generator.set_state(start[0])
         try:
             with _in_frame(frame, replaying=True):
                 yield
         finally:
-            if generator is not None:
+            if graphed:
+                generator.graphsafe_set_state(after)
+            else:
                 generator.set_state(after)
 
     return _torch_checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,

@@ -24,7 +24,7 @@ stay float32, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -53,12 +53,31 @@ def downscale2d(x: Tensor, factor: int = 2) -> Tensor:
     return F.avg_pool2d(x, factor, factor)
 
 
+_BLUR_KERNELS: Dict[Tuple[torch.dtype, torch.device], Tensor] = {}
+
+
 def blur3x3(x: Tensor) -> Tensor:
-    """Depthwise [1,2,1] x [1,2,1] / 16 blur (net.py:49-60), in x's type."""
-    f = torch.tensor([1.0, 2.0, 1.0], dtype=x.dtype, device=x.device)
-    k = (f[:, None] * f[None, :]) / 16.0
+    """Depthwise [1,2,1] x [1,2,1] / 16 blur (net.py:49-60), in x's type.
+
+    The 3x3 filter is made once per (type, device) and kept: a step copies
+    no host data to the device, which a CUDA graph's capture forbids."""
+    key = (x.dtype, x.device)
+    k = _BLUR_KERNELS.get(key)
+    if k is None:
+        f = torch.tensor([1.0, 2.0, 1.0], dtype=x.dtype)
+        k = _BLUR_KERNELS.setdefault(key, ((f[:, None] * f[None, :]) / 16.0).to(x.device))
     c = x.shape[1]
     return F.conv2d(x, k.expand(c, 1, 3, 3), padding=1, groups=c)
+
+
+def blend_lerp(prev: Tensor, x: Tensor, blend: Union[float, Tensor]) -> Tensor:
+    """``prev + (x - prev) * blend``, the blend (a float32 0-dim tensor, or a
+    float taken as one) first rounded to x's type, as the JAX package's
+    ``blend.astype(h.dtype)`` (soft_intro_vae_tpu/models/style.py:353): a
+    bf16 lerp multiplies by the bf16 blend, not by the float32 one."""
+    if not isinstance(blend, Tensor):
+        blend = torch.tensor(float(blend), dtype=torch.float32)
+    return prev + (x - prev) * blend.to(x.dtype)
 
 
 def _style_stats(m: Tensor, v: Tensor) -> Tensor:
@@ -228,7 +247,8 @@ class StyleEncoder(nn.Module):
         if with_fc_head:
             self.fc2 = LreqDense(inputs, 1, gain=1.0)
 
-    def forward(self, x: Tensor, lod: int, blend: Optional[float] = None) -> Tensor:
+    def forward(self, x: Tensor, lod: int, blend: Optional[Union[float, Tensor]] = None
+                ) -> Tensor:
         styles = torch.zeros((x.shape[0], self.latent_size), dtype=torch.float32,
                              device=x.device)
         first = self.layer_count - lod - 1
@@ -241,7 +261,7 @@ class StyleEncoder(nn.Module):
             h, s1, s2 = self.encode_block[first](h)
             styles = styles + (s1 + s2) * blend
             h_prev = self.from_rgb[first + 1](downscale2d(x))
-            h = h_prev + (h - h_prev) * blend
+            h = blend_lerp(h_prev, h, blend)
             start = first + 1
         for i in range(start, self.layer_count):
             h, s1, s2 = self.encode_block[i](h)
@@ -280,7 +300,7 @@ class StyleGenerator(nn.Module):
     def layer_to_resolution(self) -> List[int]:
         return [2 ** (i + 2) for i in range(self.layer_count)]
 
-    def forward(self, styles: Tensor, lod: int, blend: Optional[float] = None,
+    def forward(self, styles: Tensor, lod: int, blend: Optional[Union[float, Tensor]] = None,
                 noise_mode: str = "batch", generator: Optional[torch.Generator] = None) -> Tensor:
         x = self.const.expand(styles.shape[0], -1, -1, -1)
         last = lod if blend is None else lod - 1
@@ -293,8 +313,7 @@ class StyleGenerator(nn.Module):
         x = self.decode_block[lod](x, styles[:, 2 * lod], styles[:, 2 * lod + 1], noise_mode,
                                    generator)
         x = self.to_rgb[lod](x)
-        x_prev = upscale2d(x_prev)
-        return x_prev + (x - x_prev) * blend
+        return blend_lerp(upscale2d(x_prev), x, blend)
 
 
 class MappingBlock(nn.Module):

@@ -168,7 +168,10 @@ def _state_tensors(state: Any):
                     st = v.state.get(p, {})
                     out += [st[k] for k in sorted(st) if isinstance(st[k], torch.Tensor)]
         elif hasattr(v, "nu") and hasattr(v, "params"):  # LreqAdam and its kin
-            out += list(v.nu)
+            out += list(v.nu) + [t for t in (getattr(v, "count", None), getattr(v, "lr", None))
+                                 if isinstance(t, torch.Tensor)]
+        elif isinstance(v, torch.Tensor):  # the style state's LR and EMA beta
+            out.append(v)
     return out
 
 
@@ -188,8 +191,9 @@ def shard_state(state: Any, world: Optional[World] = None) -> Any:
         collectives.broadcast_(t)
     scalars = [{f.name: getattr(state, f.name) for f in dataclasses.fields(state)
                 if isinstance(getattr(state, f.name), (int, float))}]
-    scalars[0]["opt_counts"] = [getattr(getattr(state, n), "count", None)
-                                for n in ("opt_e", "opt_d")]
+    # host counts (the probes' Sgd); LreqAdam's count is a tensor, broadcast above
+    counts = [getattr(getattr(state, n), "count", None) for n in ("opt_e", "opt_d")]
+    scalars[0]["opt_counts"] = [c if isinstance(c, int) else None for c in counts]
     dist.broadcast_object_list(scalars, src=0)
     for name, v in scalars[0].items():
         if name == "opt_counts":
@@ -198,8 +202,6 @@ def shard_state(state: Any, world: Optional[World] = None) -> Any:
                     getattr(state, n).count = c
         else:
             setattr(state, name, v)
-    if isinstance(getattr(state, "lr", None), float):  # the style state's LR lives in its optimizers
-        state.set_lr(state.lr)
     gen_state = state.generator.get_state()
     collectives.broadcast_(gen_state)
     state.generator.set_state(gen_state)

@@ -37,6 +37,15 @@ mapping_tl and the decoder (train/style_step.py). The mid-epoch snapshots
 and the end-of-epoch checkpoints are saved asynchronously, from a host copy
 of the state (utils/checkpoint.py); the trainer waits for the last before it
 returns.
+
+On the card every vanilla and intro step is a replay of one CUDA graph per
+(lod, blended, phase, batch shape) (train/graph.py ``one_step``), the
+counterpart of the JAX trainer's compiled step per (lod, blended, beta_neg);
+the LR and EMA beta are filled into the state's tensors each epoch and the
+blend into the graph's slot each step. The work between steps (FID, sample
+grids, checkpoints, the NaN check) stays eager and leaves the graphs alone.
+A LOD's graphs are freed when the LOD driver moves on: it never comes back
+within a run. On the CPU, and under gloo, the steps run eagerly.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from soft_intro_vae_torch.train.style_step import (
     StyleTrainState,
     build_style_steps,
 )
+from soft_intro_vae_torch.train.graph import one_step
 from soft_intro_vae_torch.utils import yaml_config
 from soft_intro_vae_torch.utils.checkpoint import Checkpointer
 from soft_intro_vae_torch.utils.device import resolve_device
@@ -497,7 +507,8 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset=None):
             scfg = StyleStepConfig(latent_size=cfg.latent_space_size, beta_rec=cfg.beta_rec,
                                    beta_kl=cfg.beta_kl, beta_neg=beta_neg, gamma_r=1e-8,
                                    scale=cfg.scale)
-            step_cache[key] = build_style_steps(model, scfg, lod, blended)
+            step_cache[key] = tuple(one_step(s) for s in build_style_steps(model, scfg, lod,
+                                                                           blended))
         return step_cache[key]
 
     def aux(lod, completed):
@@ -524,6 +535,11 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset=None):
         if lod2batch.set_epoch(epoch):
             # optimizer state reset on a LOD switch (lod_driver.py:111-112)
             state.reset_optimizers()
+            if step_cache:  # the earlier LOD's steps, their graphs and memory pools
+                step_cache.clear()
+                step_fn = None
+                if state.device.type == "cuda":
+                    torch.cuda.empty_cache()
             if lod2batch.lod not in summary["lods_seen"]:
                 summary["lods_seen"].append(lod2batch.lod)
         lod = lod2batch.lod
@@ -531,7 +547,7 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset=None):
         batch = lod2batch.get_batch_size()
         res = model.layer_to_resolution[lod]
         state.set_lr(_lr_for(cfg, epoch, lod))
-        state.ema_beta = 0.5 ** (batch / 10000.0)
+        state.set_ema_beta(0.5 ** (batch / 10000.0))
         if (cfg.with_fid and epoch > cfg.epochs_per_lod * (cfg.layer_count - 1)
                 and epoch % cfg.fid_every == 0):
             # rank 0 alone; the others wait for its score
@@ -554,8 +570,7 @@ def train_style_soft_intro_vae(cfg: StyleConfig, dataset=None):
             blend = lod2batch.blend_factor_at(it)
             it += batch
             blended = lod2batch.in_transition and blend < 1.0 and lod > 0
-            vanilla_step, intro_step = get_steps(lod, blended, beta_neg)
-            step_fn = vanilla_step if vanilla else intro_step
+            step_fn = get_steps(lod, blended, beta_neg)[0 if vanilla else 1]
             state, m = step_fn(state, feed(raw, blend, blended), blend)
             device_metrics.append(m)
             summary["blended_steps"] += int(blended)

@@ -6,11 +6,18 @@ mapping_tl (:208-213), and the loss-computing forward's three branches (E
 :215-263, D :265-299, vanilla :300-318) with every detach point of the JAX
 package's ``sg`` calls.
 
-PyTorch runs eagerly: a step is the reference's sequence of forwards and
-LREQAdam updates, with ``requires_grad`` toggled per phase (the E phase
-leaves no gradient on the decoder and mapping_fl, the D phase none on the
-encoder and mapping_tl). The state is updated in place; the EMA twin of the
-nets (parameters and the dlatent_avg buffer) follows every step.
+A step is the reference's sequence of forwards and LREQAdam updates, with
+``requires_grad`` toggled per phase (the E phase leaves no gradient on the
+decoder and mapping_fl, the D phase none on the encoder and mapping_tl). The
+state is updated in place; the EMA twin of the nets (parameters and the
+dlatent_avg buffer) follows every step. Every scalar a step reads is a 0-dim
+tensor on the state's device, as in the JAX state: the LR and the EMA beta
+(filled in place between steps), LREQAdam's count, and the blend, so one
+step function is one program per (lod, blended), and the trainer replays it
+as a CUDA graph on the card (train/graph.py ``one_step``), the counterpart of
+the JAX package's jitted step. The step's host code (``requires_grad``
+toggles, which parameters got a gradient) is the same in every step of a
+(lod, blended) pair, and ``state.step`` is the only host state it advances.
 
 Random draws come from ``state.generator``: the prior and reparameterisation
 noise (fresh prior noise per phase, as each reference ``generate`` samples its
@@ -151,7 +158,7 @@ class StyleModel:
                               mapping_fmaps=lat, mapping_layers=mc.mapping_layers),
             DLatent(self.num_layers, lat))
 
-    def encode(self, nets: StyleNets, x: Tensor, lod: int, blend: Optional[float],
+    def encode(self, nets: StyleNets, x: Tensor, lod: int, blend: Optional[Tensor],
                eps: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
         """(z, mu, logvar) — model.py:208-213. EncoderWithFC's fc2 logit is
         dropped: only the styles feed mapping_tl (JAX train/style_step.py:109-118)."""
@@ -167,7 +174,7 @@ class StyleModel:
         return mu + eps * torch.exp(0.5 * logvar), mu, logvar
 
     def generate(self, nets: StyleNets, generator: torch.Generator, lod: int,
-                 blend: Optional[float], z: Tensor, *, mixing: bool, truncation: bool = False,
+                 blend: Optional[Tensor], z: Tensor, *, mixing: bool, truncation: bool = False,
                  noise_mode: str = "batch", update_avg: bool = True) -> Tensor:
         """The decoded image (B, C, H, W) f32 — model.py:159-206. Updates the
         dlatent_avg buffer in place with the style batch mean."""
@@ -205,12 +212,16 @@ class StyleStepConfig:
 
 
 @torch.no_grad()
-def ema_update(ema: nn.Module, online: nn.Module, beta: float) -> None:
-    """e <- e + (p - e) * (1 - beta) over parameters and buffers (:333-340)."""
-    e_params, o_params = list(ema.parameters()), list(online.parameters())
-    torch._foreach_lerp_(e_params, o_params, 1.0 - beta)
+def ema_update(ema: nn.Module, online: nn.Module, beta: Tensor) -> None:
+    """e <- e + (p - e) * (1 - beta) over parameters and buffers (:333-340),
+    ``beta`` a float32 0-dim tensor, so ``1 - beta`` is float32 as in JAX."""
+    w = 1.0 - beta
+    e_params = list(ema.parameters())
+    step = torch._foreach_sub(list(online.parameters()), e_params)
+    torch._foreach_mul_(step, w)
+    torch._foreach_add_(e_params, step)
     for e, o in zip(ema.buffers(), online.buffers()):
-        e.add_((o - e) * (1.0 - beta))
+        e.add_((o - e) * w)
 
 
 @dataclasses.dataclass
@@ -221,9 +232,9 @@ class StyleTrainState:
     opt_d: LreqAdam       # decoder + mapping_fl
     generator: torch.Generator  # on ``device``; all of the steps' random draws
     device: torch.device
+    lr: Tensor        # float32 0-dim on ``device``, read by both optimizers
+    ema_beta: Tensor  # float32 0-dim: "betta" = 0.5 ** (batch / 10000) (:400)
     step: int = 0
-    lr: float = 0.0015
-    ema_beta: float = 0.5 ** (32 / 10000.0)  # "betta" = 0.5 ** (batch / 10000) (:400)
 
     @classmethod
     def create(cls, nets: StyleNets, *, device: torch.device, seed: int, lr: float,
@@ -233,12 +244,18 @@ class StyleTrainState:
         ema = copy.deepcopy(nets).requires_grad_(False)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return cls(nets=nets, ema=ema, opt_e=LreqAdam(nets.params_e(), lr, beta2),
-                   opt_d=LreqAdam(nets.params_d(), lr, beta2), generator=gen, device=device,
-                   lr=lr, ema_beta=ema_beta)
+        lr_t = torch.full((), float(lr), dtype=torch.float32, device=device)
+        return cls(nets=nets, ema=ema, opt_e=LreqAdam(nets.params_e(), lr_t, beta2),
+                   opt_d=LreqAdam(nets.params_d(), lr_t, beta2), generator=gen, device=device,
+                   lr=lr_t, ema_beta=torch.full((), float(ema_beta), dtype=torch.float32,
+                                                device=device))
 
     def set_lr(self, lr: float) -> None:
-        self.lr = self.opt_e.lr = self.opt_d.lr = float(lr)
+        """In place: a captured step reads the tensor."""
+        self.lr.fill_(lr)
+
+    def set_ema_beta(self, beta: float) -> None:
+        self.ema_beta.fill_(beta)
 
     def reset_optimizers(self) -> None:
         self.opt_e.reset()
@@ -257,8 +274,9 @@ class StyleTrainState:
         self.opt_d.load_state_dict(sd["opt_d"])
         self.generator.set_state(sd["rng"])
         self.step = int(sd["step"])
-        self.set_lr(float(sd["lr"]))
-        self.ema_beta = float(sd["ema_beta"])
+        with torch.no_grad():  # a tensor, or the float of an earlier checkpoint
+            self.lr.copy_(torch.as_tensor(sd["lr"]))
+            self.ema_beta.copy_(torch.as_tensor(sd["ema_beta"]))
 
 
 def _trainable(params: Iterable[nn.Parameter], flag: bool) -> None:
@@ -271,7 +289,9 @@ def build_style_steps(model: StyleModel, cfg: StyleStepConfig, lod: int, blended
     """(vanilla_step, intro_step) for one (lod, in_transition) pair.
 
     ``step(state, x, blend=1.0, nz=None) -> (state, metrics)``: x is the NCHW
-    f32 batch on the state's device; ``blend`` is read only when ``blended``;
+    f32 batch on the state's device; ``blend`` (a float32 0-dim tensor on
+    that device, or a float, made one such tensor a step) is read only when
+    ``blended``;
     metrics are 0-dim tensors left on the device. ``noise_mode`` selects the
     decoder noise ("batch": fresh planes per call, the reference trainer's
     noise=True; "none": the deterministic correction, net.py:176-178).
@@ -279,8 +299,12 @@ def build_style_steps(model: StyleModel, cfg: StyleStepConfig, lod: int, blended
 
     reduce_grads = GradReducer()
 
-    def _b(blend):
-        return float(blend) if blended else None
+    def _b(state, blend) -> Optional[Tensor]:
+        if not blended:
+            return None
+        if isinstance(blend, Tensor):
+            return blend
+        return torch.full((), float(blend), dtype=torch.float32, device=state.device)
 
     def latents(state: StyleTrainState, nz, names, b: int):
         if nz is not None:
@@ -290,13 +314,14 @@ def build_style_steps(model: StyleModel, cfg: StyleStepConfig, lod: int, blended
                 for _ in names]
 
     def generate(state, z, blend, mixing):
-        return model.generate(state.nets, state.generator, lod, _b(blend), z, mixing=mixing,
+        return model.generate(state.nets, state.generator, lod, blend, z, mixing=mixing,
                               noise_mode=noise_mode)
 
     def encode(state, x, blend, eps):
-        return model.encode(state.nets, x, lod, _b(blend), eps)
+        return model.encode(state.nets, x, lod, blend, eps)
 
-    def vanilla_step(state: StyleTrainState, x: Tensor, blend: float = 1.0, nz=None):
+    def vanilla_step(state: StyleTrainState, x: Tensor, blend=1.0, nz=None):
+        blend = _b(state, blend)
         (eps,) = latents(state, nz, ("eps_real",), x.shape[0])
         nets = state.nets
         _trainable(nets.parameters(), True)
@@ -316,7 +341,8 @@ def build_style_steps(model: StyleModel, cfg: StyleStepConfig, lod: int, blended
         return state, all_reduce_metrics(dict(loss_e=loss, loss_d=loss, rec_loss=loss_rec.detach(),
                                               real_kl=loss_kl.detach()))
 
-    def intro_step(state: StyleTrainState, x: Tensor, blend: float = 1.0, nz=None):
+    def intro_step(state: StyleTrainState, x: Tensor, blend=1.0, nz=None):
+        blend = _b(state, blend)
         nets = state.nets
         eps_real, eps_e_rec, eps_e_fake, eps_d_rec, eps_d_fake, z_noise, z_noise_d = latents(
             state, nz, NZ_KEYS, x.shape[0])

@@ -6,11 +6,14 @@
 The counterpart of tools/tpu_style_sweep.py: the style trainer of
 soft_intro_vae_torch at the unmodified ffhq256 width (7 blocks, 64->512
 channels, latent 512, mapping 8) and its LOD-6 intro step (256x256), crossed
-over compute dtype (bfloat16, float32) x TRAIN.REMAT (off, on) x batch. Each
-cell builds a fresh state, takes 2 warm-up steps, then times ``--steps`` steps
-on the host clock ending in a synchronise, and reads
-``torch.cuda.max_memory_allocated`` over the cell. A cell that runs out of
-device memory is recorded as "oom". Prints the card's name and power limit,
+over compute dtype (bfloat16, float32) x TRAIN.REMAT (off, on) x batch x
+route: "graphed", the trainer's route on the card (train/graph.py
+``one_step``, a CUDA graph replayed a step), and "eager", the step itself.
+Each cell builds a fresh state, takes 4 warm-up steps (a graph's 3 eager
+steps and its capture), then times ``--steps`` steps on the host clock
+ending in a synchronise, and reads ``torch.cuda.max_memory_allocated`` over
+the cell (a graph's private pool included). A cell that runs out of device
+memory is recorded as "oom". Prints the card's name and power limit,
 one row per cell, and writes every cell to ``--out`` (JSON, default
 chiprun_out/torch_style_sweep.json). Needs a GPU; imports nothing of JAX.
 """
@@ -28,12 +31,15 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DTYPES = ("bfloat16", "float32")
 REMAT = (False, True)
+ROUTES = ("graphed", "eager")
+WARMUP = 4
 
 
-def run_cell(cfg, batch: int, steps: int) -> dict:
+def run_cell(cfg, batch: int, steps: int, route: str) -> dict:
     """ms/step and peak device memory of the LOD-6 intro step at ``batch``."""
     import torch
 
+    from soft_intro_vae_torch.train.graph import one_step
     from soft_intro_vae_torch.train.style import MultiResImages, _Feed, build_style_training
     from soft_intro_vae_torch.train.style_step import StyleStepConfig, build_style_steps
 
@@ -45,15 +51,16 @@ def run_cell(cfg, batch: int, steps: int) -> dict:
     scfg = StyleStepConfig(latent_size=cfg.latent_space_size, beta_rec=cfg.beta_rec,
                            beta_kl=cfg.beta_kl, beta_neg=float(cfg.beta_neg[lod]), scale=cfg.scale)
     _, intro = build_style_steps(model, scfg, lod, False)
+    step = one_step(intro) if route == "graphed" else intro
     images = MultiResImages.synthetic(2 * batch, res, seed=5).at_resolution(res)
     feed = _Feed(state.device)
     batches = [feed(images[i * batch:(i + 1) * batch], 1.0, False) for i in range(2)]
-    for i in range(2):
-        state, m = intro(state, batches[i])
+    for i in range(WARMUP):
+        state, m = step(state, batches[i % 2])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
-        state, m = intro(state, batches[i % 2])
+        state, m = step(state, batches[i % 2])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
     if not all(bool(torch.isfinite(v)) for v in m.values()):
@@ -89,13 +96,14 @@ def main(argv=None) -> int:
                 "DATASET.SYNTHETIC", "true"])
             cfg = dataclasses.replace(cfg, seed=0, device="cuda", verbose=False)
             for batch in (int(b) for b in args.batches.split(",")):
-                key = f"ffhq256_lod6_{dtype}_remat{'on' if remat else 'off'}_bs{batch}"
-                try:
-                    cells[key] = run_cell(cfg, batch, args.steps)
-                except torch.cuda.OutOfMemoryError:
-                    cells[key] = "oom"
-                torch.cuda.empty_cache()
-                print(f"{key}: {cells[key]}", flush=True)
+                for route in ROUTES:
+                    key = f"ffhq256_lod6_{dtype}_remat{'on' if remat else 'off'}_bs{batch}_{route}"
+                    try:
+                        cells[key] = run_cell(cfg, batch, args.steps, route)
+                    except torch.cuda.OutOfMemoryError:
+                        cells[key] = "oom"
+                    torch.cuda.empty_cache()
+                    print(f"{key}: {cells[key]}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": card, "steps": args.steps, "cells": cells}, f, indent=1)
