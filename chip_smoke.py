@@ -18,13 +18,21 @@ Phases, each printing one line; any failure exits non-zero:
               its launch plan; two launches bit-equal);
   4. train 3d: ``train_soft_intro_vae_3d`` at the full width of
               configs/soft_intro_vae_hp.json (2048 points, batch 32, z 128) on
-              synthetic clouds for one intro epoch plus the valid JSD, every
-              kernel's launch count read around it; the step time after
-              warm-up; one step through the kernel against the plain route;
+              synthetic clouds for one intro epoch plus the valid JSD, each
+              step a replay of the intro graph after 3 eager warm-up steps and
+              its capture, every kernel's launch count and the captures read
+              around it; the step time after warm-up graphed and eager, device
+              busy time and peak memory; one step through the kernel against
+              the plain route;
   4b. graph 3d: the generic step's K-step form (``scan_steps`` 4, a CUDA
               graph of one step with the chamfer kernel captured) at that
               width, two calls against 8 eager steps from the same seed: every
               metric, parameter, BN buffer, Adam moment and count bit-equal;
+              then the trainer's single step (``one_step``) against the eager
+              step over a trainer's course (``single_script``): vanilla, the
+              switch with the vanilla graphs freed, intro with the valid JSD
+              between replays, intro with injected draws, bit-equal, chamfer
+              launches 1 a vanilla and 6 an intro step;
   5. train style: ``train_style_soft_intro_vae`` at the full width of
               configs/ffhq256.yaml (7 blocks, 64->512 channels, latent 512,
               bf16) at LOD 6 (256x256, batch 4) on synthetic images, one
@@ -70,8 +78,11 @@ Phases, each printing one line; any failure exits non-zero:
               ``scan_steps`` 8 on a uint8 dataset, one vanilla and one intro
               epoch of 8 graph calls of 8 steps and a trailing call of one,
               u8norm launches (eager warm-up steps plus graph replays) held to
-              the steps taken, every 4-D parameter channels-last; ms per intro
-              step after warm-up at scan_steps 8 and 1, and cuDNN's layout
+              the steps taken, every 4-D parameter channels-last; the same at
+              the CLI's scan_steps 1 (a graph replay a step, sample grids
+              between replays); ms per intro step after warm-up at scan_steps
+              8, and at 1 graphed and eager with device busy time and peak
+              memory, and cuDNN's layout
               transposes (``nchwToNhwc``/``nhwcToNchw`` kernels) per graphed
               step from a torch.profiler pass over two calls, held to 0 (the
               trace held to one u8norm launch a step);
@@ -79,15 +90,23 @@ Phases, each printing one line; any failure exits non-zero:
               normalize, from the same weights, draws and uint8 batch;
  11b. graph image: 16 intro steps as two graph calls of 8 against 16 eager
               steps from the same seed on the same uint8 batches, bit-equal
-              as in 4b;
+              as in 4b; then the trainer's single step against the eager step
+              over a trainer's course as in 4b, a sample grid and a NaN check
+              between replays;
  12. bootstrap image: one bootstrap epoch at scan_steps 8; the target
-              decoder's sync is a copy into tensors of its own;
+              decoder's sync is a copy into tensors of its own; then the
+              single step graphed against eager through the switch and a
+              target sync between two intro replays;
  13. toy:     ``train_soft_intro_vae_toy`` at the toy CLI recipe's width
               (8Gaussians, z 2, 3 hidden layers of 256, batch 512), 100
               vanilla and 200 intro iterations, then its final metrics (the
               gnELBO over the 1024x1024 grid, sample KL and JSD); ms per
               iteration, device operations and idle share (torch.profiler),
-              vanilla and intro; one intro step against the CPU's;
+              vanilla and intro, graphed (the trainer's route) and eager,
+              with peak memory; the single step graphed against eager over a
+              trainer's course with an LR fill after every step and the
+              deterministic forward between replays; one intro step against
+              the CPU's;
  14. fid:     the FID Inception (random init calibrated on the card) against
               its CPU forward, TF32 off, and its speed with TF32 off and on;
               Newton-Schulz against scipy's sqrtm at 2048x2048; a with_fid
@@ -124,8 +143,9 @@ Phases, each printing one line; any failure exits non-zero:
  12b. remat image: the image step with ``remat`` at scan_steps 8, graph
               calls against eager remat steps and against graphed steps
               without remat, all bit-equal under deterministic routes; u8norm
-              launches one a step; ms/step and peak device memory, remat off
-              and on;
+              launches one a step; the single step with remat graphed against
+              eager over a trainer's course; ms/step and peak device memory,
+              remat off and on;
  12c. async save: an image run at scan_steps 8 with an async save each
               epoch: each reloaded file equals the state at its save,
               though the graph replayed after it;
@@ -169,6 +189,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -689,15 +710,19 @@ def phase_train_3d(device, card: str, results_dir: str):
     steps = TRAIN_N // cfg.batch_size
 
     reset_counts()
+    graphs = captured_graphs()
     t0 = time.perf_counter()
     _, summary = train_soft_intro_vae_3d(cfg)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    counts = read_counts()
+    counts, captured, graphs = read_counts(), captured_counts(), captured_graphs() - graphs
     launches = counts["chamfer_nearest"]
     last = summary["last_metrics"]
     check(launches == 6 * steps, f"chamfer_nearest launched {launches} times in {steps} intro "
           f"steps, expected {6 * steps} (one a chamfer call)")
+    check(graphs == 1 and captured == {"chamfer_nearest": 6},
+          f"the 3D trainer captured {graphs} graphs recording {captured}; expected one intro "
+          f"graph recording 6 chamfer launches")
     check(counts["bias_act_norm_fwd"] == counts["bias_act_norm_bwd"] == counts["u8norm"] == 0,
           f"the 3D path launched a fused-norm or u8norm kernel: {counts}")
     check(math.isfinite(last["loss_e"]) and math.isfinite(last["loss_d"]),
@@ -707,22 +732,12 @@ def phase_train_3d(device, card: str, results_dir: str):
     check(os.path.exists(os.path.join(cfg.results_dir, "weights", "model_epoch_1_iter_0.ckpt")),
           "no checkpoint written")
 
-    # step time after warm-up, from the same build_3d_training the trainer calls
-    state, _, intro_step = build_3d_training(cfg)
+    # step time after warm-up, from the same build_3d_training the trainer calls:
+    # its route (a graph a step) and the eager step
     pts = torch.from_numpy(SyntheticClouds(cfg.batch_size * 4, cfg.n_points, seed=5).points).to(device)
     batches = [pts[i * cfg.batch_size:(i + 1) * cfg.batch_size] for i in range(4)]
-    for i in range(3):
-        state, m = intro_step(state, batches[i % 4])
-    windows = []
-    for _ in range(TIMED_WINDOWS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(TIMED_STEPS):
-            state, m = intro_step(state, batches[i % 4])
-        torch.cuda.synchronize()
-        windows.append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
-    ms_step = sorted(windows)[len(windows) // 2]
-    check(math.isfinite(float(m["loss_e"])), "non-finite loss in the timed steps")
+    times = route_times(lambda: build_3d_training(cfg), "intro", batches)
+    ms_step = times["graphed"]["ms"]
 
     # impl="cuda" against impl="plain": same weights, same batch, same noises
     gen = torch.Generator(device=device)
@@ -741,8 +756,9 @@ def phase_train_3d(device, card: str, results_dir: str):
     print(f"train 3d: {steps} intro steps + valid JSD at 2048 points, batch 32, z 128 in "
           f"{epoch_s:.2f} s (first call, warm-up included); loss_e {last['loss_e']:.6g}, "
           f"loss_d {last['loss_d']:.6g}, JSD {summary['best_jsd']:.4f}; chamfer_nearest "
-          f"launches {launches}; after warm-up {ms_step:.3f} ms/step (median of "
-          f"{'/'.join(f'{w:.3f}' for w in windows)}), "
+          f"launches {launches} on the device (3 eager warm-up steps, then replays of the "
+          f"intro graph, {captured['chamfer_nearest']} recorded in its capture); intro step "
+          f"after warm-up: {routes_line(times)}; graphed "
           f"{cfg.batch_size * 1e3 / ms_step:.1f} clouds/s on {card}; impl=cuda vs plain "
           f"loss_e {losses['cuda'][0]!r}/{losses['plain'][0]!r}, loss_d "
           f"{losses['cuda'][1]!r}/{losses['plain'][1]!r}", flush=True)
@@ -815,6 +831,7 @@ def graph_against_eager(build, xs, scan: int):
 
     sg, graphed = build(scan)
     se, eager = build(1)
+    eager = eager.eager  # the step that scan_steps=1 replays as a graph
     reset_counts()
     mg = [graphed(sg, xs[i:i + scan])[1] for i in range(0, xs.shape[0], scan)]
     torch.cuda.synchronize()
@@ -825,14 +842,147 @@ def graph_against_eager(build, xs, scan: int):
             (se, {k: torch.stack([m[k] for m in me]) for k in me[0]}), counts, captured)
 
 
+SINGLE_STEPS = 5  # a phase's steps in a single-step script: 3 eager warm-up steps, a capture, a replay
+
+
+def single_graph_against_eager(build, script):
+    """The trainers' route at scan_steps 1 (train/graph.py ``one_step``, one
+    CUDA graph a key) against the eager step. ``build()`` makes a fresh state
+    of one seed and its (vanilla, intro) wrappers; ``script`` is a list of
+    (phase, batch, injected draws or None, hook or None) steps, run through
+    the wrappers on one state and through their ``.eager`` steps on another,
+    ``hook(state)`` after its step on both. At the first intro step each run
+    drops its vanilla step, as the trainers do. Returns (graph run, eager run,
+    the graph run's device launches, launches recorded in its captures, graphs
+    it captured, whether the vanilla graphs were freed at the switch); each
+    run is (state, metrics by step) as ``compare_runs`` takes it."""
+    import torch
+
+    runs = []
+    for route in ("graphed", "eager"):
+        state, vanilla, intro = build()
+        if route == "eager":
+            vanilla, intro = vanilla.eager, intro.eager
+        reset_counts()
+        before, step, freed, ms = captured_graphs(), None, False, {}
+        for i, (phase, x, draws, hook) in enumerate(script):
+            if phase == "intro" and vanilla is not None:
+                ref = weakref.ref(vanilla.graphed) if route == "graphed" else None
+                vanilla = step = None
+                gc.collect()
+                freed = ref is not None and ref() is None
+            step = vanilla if phase == "vanilla" else intro
+            state, m = step(state, x, *((draws,) if draws else ()))
+            ms.update({f"step {i} {k}": v for k, v in m.items()})
+            if hook is not None:
+                hook(state)
+        torch.cuda.synchronize()
+        if route == "graphed":
+            counts, captured = read_counts(), captured_counts()
+            graphs, gone = captured_graphs() - before, freed
+        runs.append((state, ms))
+        del state, vanilla, intro, step
+    return runs[0], runs[1], counts, captured, graphs, gone
+
+
+def single_script(xs, intro_draws, hook_at=None, hook=None):
+    """A trainer's course at scan_steps 1: SINGLE_STEPS vanilla steps, the
+    switch, SINGLE_STEPS + 2 intro steps (``hook`` after intro step
+    ``hook_at``, a replay), then SINGLE_STEPS intro steps with the injected
+    draws ``intro_draws(i)``; the batches of ``xs`` in turn."""
+    steps = [("vanilla", None, None)] * SINGLE_STEPS
+    steps += [("intro", None, hook if i == hook_at else None) for i in range(SINGLE_STEPS + 2)]
+    script = [(phase, xs[i % len(xs)], draws, h) for i, (phase, draws, h) in enumerate(steps)]
+    n = len(script)
+    if intro_draws is not None:
+        script += [("intro", xs[(n + i) % len(xs)], intro_draws(i), None)
+                   for i in range(SINGLE_STEPS)]
+    return script
+
+
+def seeded_draws(device, b: int, z: int, seed: int, names) -> dict:
+    """Injected draws by name, (b, z) normals from a seeded generator on the card."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return {k: torch.randn((b, z), generator=gen, device=device) for k in names}
+
+
+def route_times(build, phase: str, batches) -> dict:
+    """``phase``'s step on fresh states of one seed, graphed (the trainers'
+    route) and eager: by route, ms/step (median of TIMED_WINDOWS windows of
+    TIMED_STEPS steps after SINGLE_STEPS warm-up steps, a graph's capture
+    among them), the windows, (device busy ms, device operations) a step from
+    a device trace of TIMED_STEPS steps, and peak device memory over the
+    route in GiB with what was allocated as it began."""
+    import itertools
+
+    import torch
+
+    out = {}
+    for route in ("graphed", "eager"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+        state, vanilla, intro = build()
+        step = vanilla if phase == "vanilla" else intro
+        step = step if route == "graphed" else step.eager
+        turn = itertools.count()
+
+        def call():
+            return step(state, batches[next(turn) % len(batches)])[1]
+
+        for _ in range(SINGLE_STEPS):
+            call()
+        windows = []
+        for _ in range(TIMED_WINDOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TIMED_STEPS):
+                m = call()
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
+        check(all(math.isfinite(float(v)) for v in m.values()),
+              f"non-finite loss in the timed {route} {phase} steps")
+        busy = device_busy(call, TIMED_STEPS)
+        out[route] = dict(ms=sorted(windows)[len(windows) // 2], windows=windows, busy=busy[0],
+                          ops=busy[1], peak=torch.cuda.max_memory_allocated() / 2**30, base=base)
+        del state, vanilla, intro, step, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def routes_line(times: dict) -> str:
+    return "; ".join(
+        f"{route} {t['ms']:.3f} ms/step (median of {'/'.join(f'{w:.3f}' for w in t['windows'])}), "
+        f"device busy {t['busy']:.3f} ms/step (idle {1 - t['busy'] / t['ms']:.1%}), "
+        f"{t['ops']:.0f} device operations a step, peak {t['peak']:.3f} GiB ({t['base']:.3f} "
+        f"allocated before)" for route, t in times.items())
+
+
+def single_line(compared: int, counts: dict, captured: dict, graphs: int,
+                kinds: str = "vanilla, intro, intro with injected draws") -> str:
+    kernels = {k: v for k, v in counts.items() if v}
+    return (f"all {compared} tensors bit-equal, {graphs} graphs captured ({kinds}), vanilla "
+            f"graphs freed at the switch; "
+            f"hand-written kernel launches on the device {kernels or 'none'}, recorded in the "
+            f"captures {captured or 'none'}")
+
+
 def phase_graph_3d(device):
     """The generic step's K-step form with the 3D StepConfig at full width
     (2048 points, batch 32, z 128): two calls of K = 4 (a CUDA graph, the
-    chamfer kernel captured) against 8 eager steps from the same seed."""
+    chamfer kernel captured) against 8 eager steps from the same seed; then
+    the 3D trainer's route at scan_steps 1 (one graph a key) against the
+    eager step over ``single_script``: vanilla, the switch, intro with the
+    valid JSD between replays, intro with injected draws."""
     import torch
 
     from soft_intro_vae_torch.data.shapenet import SyntheticClouds
-    from soft_intro_vae_torch.train.threed import ThreeDConfig, build_3d_training
+    from soft_intro_vae_torch.train.step import INTRO_NOISES
+    from soft_intro_vae_torch.train.threed import ThreeDConfig, build_3d_training, calc_jsd_valid
 
     base = ThreeDConfig.from_json(os.path.join(ROOT, "configs", "soft_intro_vae_hp.json"))
     cfg = dataclasses.replace(base, seed=0, device=str(device), verbose=False)
@@ -853,23 +1003,50 @@ def phase_graph_3d(device):
           f"{6 * n} chamfer launches, 6 recorded in one capture")
     check(not differ, f"3D K-step graph against eager steps: {len(differ)} of {compared} tensors "
           f"differ (first {differ[:6]}), max |diff| {worst!r}")
-    print(f"graph 3d: the generic step's K-step form at 2048 points, batch 32, z 128, two calls "
-          f"of K = 4 (3 eager warm-up steps, a capture, 5 replays) against 8 eager steps, TF32 "
-          f"off, cuDNN deterministic, PyTorch's deterministic scatter_add_: all {compared} "
-          f"tensors bit-equal (metrics (8,), "
-          f"parameters and BN buffers, Adam moments and counts, generator); chamfer_nearest "
-          f"launches {counts['chamfer_nearest']} on the device, {captured['chamfer_nearest']} "
-          f"recorded in the capture (a cooperative launch captured); "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    k_step = (f"all {compared} tensors bit-equal (metrics (8,), parameters and BN buffers, Adam "
+              f"moments and counts, generator); chamfer_nearest launches "
+              f"{counts['chamfer_nearest']} on the device, {captured['chamfer_nearest']} recorded "
+              f"in the capture (a cooperative launch captured)")
+
+    valid = SyntheticClouds(8, cfg.n_points, seed=7).points
+    jsd = []
+    script = single_script(
+        xs, lambda i: seeded_draws(device, b, cfg.z_size, 40 + i, INTRO_NOISES), hook_at=4,
+        hook=lambda state: jsd.append(calc_jsd_valid(state, valid, cfg)))
+    n_vanilla = sum(phase == "vanilla" for phase, *_ in script)
+    with exact_routes(deterministic_algorithms=True):
+        graph_run, eager_run, counts, captured, graphs, freed = single_graph_against_eager(
+            lambda: build_3d_training(cfg), script)
+    differ, worst, compared = compare_runs(graph_run, eager_run)
+    want = n_vanilla + 6 * (len(script) - n_vanilla)  # one chamfer call a vanilla step
+    check(counts["chamfer_nearest"] == want and captured == {"chamfer_nearest": 13}
+          and graphs == 3 and freed,
+          f"3D single-step run: device launches {counts} (expected {want} chamfer), captured "
+          f"{captured} (expected 1 + 6 + 6), {graphs} graphs, vanilla graphs freed {freed}")
+    check(not differ, f"3D single-step graph against eager steps: {len(differ)} of {compared} "
+          f"tensors differ (first {differ[:6]}), max |diff| {worst!r}")
+    check(len(jsd) == 2 and jsd[0] == jsd[1] and math.isfinite(jsd[0]),
+          f"the valid JSD between replays: {jsd}")
+    print(f"graph 3d: 2048 points, batch 32, z 128, TF32 off, cuDNN deterministic, PyTorch's "
+          f"deterministic scatter_add_. K-step form, two calls of K = 4 (3 eager warm-up steps, a "
+          f"capture, 5 replays) against 8 eager steps: {k_step}. The trainer's single step "
+          f"(one_step), {len(script)} steps ({n_vanilla} vanilla, then intro with the valid JSD "
+          f"{jsd[0]:.6f} between replays, then intro with injected draws) against the eager "
+          f"steps: " + single_line(compared, counts, captured, graphs)
+          + f"; {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def phase_graph_image(device):
     """16 intro steps at the CIFAR-10 recipe's width as two K-step calls of 8
     (a CUDA graph, the u8norm kernel captured) against 16 eager steps from the
-    same seed on the same uint8 batches."""
+    same seed on the same uint8 batches; then the image trainer's route at
+    scan_steps 1 (one graph a key) against the eager step over
+    ``single_script``: vanilla, the switch, intro with a sample grid and a
+    NaN check between replays, intro with injected draws."""
     import torch
 
-    from soft_intro_vae_torch.train.image import build_image_training
+    from soft_intro_vae_torch.train.image import _save_sample_grid, build_image_training
+    from soft_intro_vae_torch.train.step import INTRO_NOISES
 
     n = 16
     spec, ds = image_dataset(n * 32, seed=9)
@@ -888,12 +1065,36 @@ def phase_graph_image(device):
           f"image K-step run: device launches {counts}, captured {captured}")
     check(not differ, f"image K-step graph against eager steps: {len(differ)} of {compared} "
           f"tensors differ (first {differ[:6]}), max |diff| {worst!r}")
-    print(f"graph image: CIFAR-10 recipe width, two calls of K = {IMAGE_SCAN} (3 eager warm-up "
-          f"steps, a capture, 13 replays) against {n} eager intro steps, TF32 off, cuDNN "
-          f"deterministic: all {compared} tensors bit-equal (metrics ({n},), parameters and BN "
-          f"buffers, Adam moments and counts, generator); u8norm launches {counts['u8norm']} on "
-          f"the device, {captured['u8norm']} recorded in the capture; "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    k_step = (f"all {compared} tensors bit-equal (metrics ({n},), parameters and BN buffers, "
+              f"Adam moments and counts, generator); u8norm launches {counts['u8norm']} on the "
+              f"device, {captured['u8norm']} recorded in the capture")
+
+    def between(state):  # the trainer's work between steps: a sample grid, a NaN check
+        _save_sample_grid(state, xs[0], fig_cfg, 0)
+        m = state.model.state_dict()["encoder.fc.weight"]
+        check(bool(torch.isfinite(m).all()), "non-finite encoder weights")
+
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as fig_dir:
+        fig_cfg = dataclasses.replace(cfg, result_dir=fig_dir)
+        script = single_script(
+            xs, lambda i: seeded_draws(device, 32, cfg.z_dim, 50 + i, INTRO_NOISES), hook_at=4,
+            hook=between)
+        with exact_routes():
+            graph_run, eager_run, counts, captured, graphs, freed = single_graph_against_eager(
+                lambda: build_image_training(cfg, spec), script)
+    differ, worst, compared = compare_runs(graph_run, eager_run)
+    check(counts["u8norm"] == len(script) and captured == {"u8norm": 3} and graphs == 3
+          and freed, f"image single-step run: device launches {counts}, captured {captured}, "
+          f"{graphs} graphs, vanilla graphs freed {freed}")
+    check(not differ, f"image single-step graph against eager steps: {len(differ)} of {compared} "
+          f"tensors differ (first {differ[:6]}), max |diff| {worst!r}")
+    print(f"graph image: CIFAR-10 recipe width, TF32 off, cuDNN deterministic. K-step form, two "
+          f"calls of K = {IMAGE_SCAN} (3 eager warm-up steps, a capture, 13 replays) against {n} "
+          f"eager intro steps: {k_step}. The trainer's single step (one_step), {len(script)} "
+          f"steps ({SINGLE_STEPS} vanilla, then intro with a sample grid and a NaN check between "
+          f"replays, then intro with injected draws) against the eager steps: "
+          + single_line(compared, counts, captured, graphs)
+          + f"; {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 # the style slice: configs/ffhq256.yaml at full width, LOD 6 (256x256)
@@ -1759,11 +1960,12 @@ def phase_train_image(device, card: str, results_dir: str):
     """The image trainer's main path at the CIFAR-10 recipe's width and
     bench.py's scan_steps 8: one vanilla and one intro epoch on a uint8
     dataset, each 8 graph calls of 8 steps and a trailing call of one,
-    launches counted per capture plus per replay; ms per step at scan_steps
-    8 and 1."""
+    launches counted per capture plus per replay; the same at the CLI's
+    scan_steps 1, a graph replay a step, with sample grids between replays;
+    ms per step at scan_steps 8, and at 1 graphed and eager."""
     import torch
 
-    from soft_intro_vae_torch.train.image import train_soft_intro_vae
+    from soft_intro_vae_torch.train.image import build_image_training, train_soft_intro_vae
 
     cfg = image_config(device, results_dir, scan_steps=IMAGE_SCAN)
     spec, ds = image_dataset()
@@ -1789,10 +1991,35 @@ def phase_train_image(device, card: str, results_dir: str):
     check_channels_last(state.model)
     del state
 
-    ms = {scan: image_ms_step(cfg, spec, ds, device, scan) for scan in (IMAGE_SCAN, 1)}
+    # the CLI's default scan_steps 1: a graph replay a step, a sample grid between replays
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as one_dir:
+        cfg1 = image_config(device, one_dir, save_figures=True, test_iter=16, nan_check_iter=8)
+        reset_counts()
+        graphs = captured_graphs()
+        t0 = time.perf_counter()
+        state, summary1 = train_soft_intro_vae(cfg1, ds, spec)
+        torch.cuda.synchronize()
+        run1_s = time.perf_counter() - t0
+        counts1, captured1 = read_counts(), captured_counts()
+        graphs = captured_graphs() - graphs
+    check(summary1["steps"] == state.step == steps and counts1["u8norm"] == steps,
+          f"image run at scan_steps 1: {summary1['steps']} steps, u8norm launches "
+          f"{counts1['u8norm']} (expected one a step)")
+    check(graphs == 2 and captured1 == {"u8norm": 2},
+          f"image run at scan_steps 1: {graphs} graphs captured recording {captured1}; expected "
+          f"the vanilla and the intro graph, one u8norm launch each")
+    check(all(math.isfinite(v) for v in summary1["last_metrics"].values()),
+          f"non-finite image metrics at scan_steps 1: {summary1['last_metrics']}")
+    del state
+
+    ms = {IMAGE_SCAN: image_ms_step(cfg, spec, ds, device, IMAGE_SCAN)}
+    b = cfg.batch_size
+    resident = [torch.from_numpy(ds.images[i * b:(i + 1) * b]).to(device) for i in range(2)]
+    times1 = route_times(lambda: build_image_training(cfg1, spec), "intro", resident)
     timing = "; ".join(
         f"scan_steps {scan}: {m:.3f} ms/step (median of {'/'.join(f'{w:.3f}' for w in ws)}), "
         f"{cfg.batch_size * 1e3 / m:.1f} images/s" for scan, (m, ws, _) in ms.items())
+    timing += f"; scan_steps 1: {routes_line(times1)}"
     transposes = ms[IMAGE_SCAN][2]
     check(not transposes, f"a graphed image step launches cuDNN layout transposes: {transposes}")
     layout = (f"{sum(c for c, _ in transposes.values()):.1f} launches, "
@@ -1804,10 +2031,14 @@ def phase_train_image(device, card: str, results_dir: str):
           f"included); loss_e {last['loss_e']:.6g}, loss_d {last['loss_d']:.6g}, rec "
           f"{last['rec']:.6g}; u8norm launches {counts['u8norm']} (one a step: eager warm-up "
           f"steps and graph replays; {captured['u8norm']} recorded in 2 captures); every 4-D "
-          f"parameter channels-last; intro step after warm-up, 16-step windows: {timing}; cuDNN "
+          f"parameter channels-last; at scan_steps 1 (the CLI's default) through the trainer, "
+          f"figures every 16 steps: {steps} steps in {run1_s:.2f} s, u8norm launches "
+          f"{counts1['u8norm']} on the device, {graphs} graphs captured recording "
+          f"{captured1['u8norm']} u8norm launches; intro step after warm-up, 16-step windows "
+          f"at scan_steps {IMAGE_SCAN}, {TIMED_STEPS}-step at 1: {timing}; cuDNN "
           f"layout transposes per graphed step (nchwToNhwc/nhwcToNchw kernels, torch.profiler "
           f"over 2 calls of {IMAGE_SCAN}): {layout}; on {card}", flush=True)
-    return cfg, counts, ms
+    return cfg, counts, times1
 
 
 def phase_image_routes(device, cfg):
@@ -1853,10 +2084,14 @@ def phase_image_routes(device, cfg):
 def phase_bootstrap_image(device, results_dir: str):
     """One bootstrap epoch at the CIFAR-10 recipe's width (gamma_r 1.0, the
     target synced every epoch): the target's tensors equal the decoder's
-    after the sync and share no storage with them."""
+    after the sync and share no storage with them. Then the trainer's route
+    at scan_steps 1 against the eager step, vanilla, the switch and intro
+    steps with a target sync between two replays: the replays after it read
+    the synced target."""
     import torch
 
-    from soft_intro_vae_torch.train.image import train_soft_intro_vae
+    from soft_intro_vae_torch.train.image import (
+        build_image_training, sync_target_decoder, train_soft_intro_vae)
 
     cfg = image_config(device, results_dir, bootstrap=True, gamma_r=1.0, copy_to_target_freq=1,
                        num_epochs=1, num_vae=0, scan_steps=IMAGE_SCAN)
@@ -1881,11 +2116,39 @@ def phase_bootstrap_image(device, results_dir: str):
     check_channels_last(state.model)
     last = summary["last_metrics"]
     check(all(math.isfinite(v) for v in last.values()), f"non-finite bootstrap metrics: {last}")
+    run_s = time.perf_counter() - t0
+    del state
+
+    # the trainer's route at scan_steps 1 against the eager step, a target
+    # sync between two intro replays
+    n = 8
+    spec8, ds8 = image_dataset(n * 32, seed=15)
+    xs = torch.from_numpy(ds8.images).to(device).view(n, 32, *ds8.images.shape[1:])
+    cfg1 = dataclasses.replace(cfg, scan_steps=1)
+
+    def build():
+        built = build_image_training(cfg1, spec8)
+        sync_target_decoder(built[0])  # the target starts equal to the decoder, as in the trainer
+        return built
+
+    script = single_script(xs, None, hook_at=4, hook=sync_target_decoder)
+    with exact_routes():
+        graph_run, eager_run, counts, captured, graphs, freed = single_graph_against_eager(
+            build, script)
+    differ, worst, compared = compare_runs(graph_run, eager_run)
+    check(counts["u8norm"] == len(script) and captured == {"u8norm": 2} and graphs == 2 and freed,
+          f"bootstrap single-step run: device launches {counts}, captured {captured}, {graphs} "
+          f"graphs, vanilla graphs freed {freed}")
+    check(not differ, f"bootstrap single-step graph against eager steps, a sync between "
+          f"replays: {len(differ)} of {compared} tensors differ (first {differ[:6]}), max |diff| "
+          f"{worst!r}")
     print(f"bootstrap image: {steps} bootstrap intro steps (gamma_r 1.0, scan_steps "
-          f"{IMAGE_SCAN}: graph replays) in "
-          f"{time.perf_counter() - t0:.2f} s; loss_e {last['loss_e']:.6g}, loss_d "
+          f"{IMAGE_SCAN}: graph replays) in {run_s:.2f} s; loss_e {last['loss_e']:.6g}, loss_d "
           f"{last['loss_d']:.6g}; after the sync the target's {len(target)} tensors equal the "
-          f"decoder's and share no storage with them", flush=True)
+          f"decoder's and share no storage with them; the trainer's single step (one_step), "
+          f"{len(script)} steps ({SINGLE_STEPS} vanilla, then intro with a target sync between "
+          f"two replays) against the eager steps, TF32 off, cuDNN deterministic: "
+          + single_line(compared, counts, captured, graphs, "vanilla, intro"), flush=True)
 
 
 # the toy slice: the toy CLI's recipe (tools/torch_profile_toy.py RECIPE:
@@ -1912,18 +2175,21 @@ def phase_toy(device, card: str, results_dir: str):
 
     from soft_intro_vae_torch.data.toy import ToyDataset
     from soft_intro_vae_torch.train.step import INTRO_NOISES
-    from soft_intro_vae_torch.train.toy import ToyConfig, build_toy, train_soft_intro_vae_toy
+    from soft_intro_vae_torch.train.toy import (
+        ToyConfig, build_toy, det_fwd, train_soft_intro_vae_toy)
     from tools.torch_profile_toy import RECIPE, toy_phases
 
     cfg = ToyConfig(n_iter=TOY_ITERS, num_vae=TOY_NUM_VAE, test_iter=100, seed=0,
                     device=str(device), verbose=False, result_dir=results_dir, **RECIPE)
     reset_counts()
+    graphs = captured_graphs()
     t0 = time.perf_counter()
     state, res = train_soft_intro_vae_toy(cfg)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts = read_counts()
+    counts, graphs = read_counts(), captured_graphs() - graphs
     check(state.step == TOY_ITERS and state.device.type == "cuda", f"toy run: step {state.step}")
+    check(graphs == 2, f"the toy trainer captured {graphs} graphs, expected vanilla and intro")
     check(all(math.isfinite(v) for v in res.values()), f"non-finite toy metrics: {res}")
     check(not any(counts.values()), f"the toy path launched a hand-written kernel: {counts}")
     with open(os.path.join(results_dir, "results_log_soft_intro_vae.txt")) as f:
@@ -1932,6 +2198,30 @@ def phase_toy(device, card: str, results_dir: str):
           f"toy results line: {line!r}")
 
     prof = toy_phases(device, TOY_PROFILE_ITERS)
+
+    # the trainer's route against the eager step: LR fills after every step,
+    # the test_iter reads (the metrics, the deterministic forward) between replays
+    sampler = ToyDataset(seed=23)
+    xs = [torch.from_numpy(sampler.next_batch(cfg.batch_size)).to(device) for _ in range(4)]
+    def between(state):
+        state.set_lr(cfg.lr_e * (1 + 0.1 * state.step), cfg.lr_d * (1 + 0.05 * state.step))
+        if state.step % 4 == 3:
+            with torch.no_grad():
+                check(math.isfinite(float(det_fwd(state)(xs[0])[2].square().mean())),
+                      "non-finite deterministic reconstruction")
+
+    script = [(phase, x, draws, between) for phase, x, draws, _ in single_script(
+        xs, lambda i: seeded_draws(device, cfg.batch_size, cfg.z_dim, 70 + i, INTRO_NOISES))]
+    with exact_routes():
+        graph_run, eager_run, g_counts, g_captured, g_graphs, freed = single_graph_against_eager(
+            lambda: build_toy(cfg), script)
+    differ, worst, compared = compare_runs(graph_run, eager_run)
+    check(g_graphs == 3 and freed and not g_captured,
+          f"toy single-step run: {g_graphs} graphs, captured {g_captured}, vanilla graphs freed "
+          f"{freed}")
+    check(not differ, f"toy single-step graph against eager steps: {len(differ)} of {compared} "
+          f"tensors differ (first {differ[:6]}), max |diff| {worst!r}")
+    del graph_run, eager_run
 
     # one intro step on the card and on the CPU from the same weights
     card_state, _, card_intro = build_toy(cfg)
@@ -1951,15 +2241,23 @@ def phase_toy(device, card: str, results_dir: str):
           f"toy intro step, card {losses} vs CPU {({k: float(m_cpu[k]) for k in losses})}")
     parts = [f"{phase} {r['ms_iter']:.3f} ms/iteration ({r['device_ops_iter']:.0f} device "
              f"operations, device busy {r['busy_ms_iter']:.3f} ms, idle {r['idle_share_untraced']:.1%} "
-             f"of the untraced iteration)" for phase, r in prof.items()]
+             f"of the untraced iteration, peak {r['peak_gib']:.4f} GiB)"
+             for phase, r in prof.items()]
     print(f"toy: train_soft_intro_vae_toy at the CLI recipe's width (8Gaussians, z 2, 3x256, "
           f"batch 512, betas 0.2/0.3/0.9), {TOY_NUM_VAE} vanilla + {TOY_ITERS - TOY_NUM_VAE} "
-          f"intro iterations and the final metrics in {run_s:.2f} s: gn_elbo {res['gn_elbo']:.6g}, "
+          f"intro iterations (graph replays, {graphs} graphs captured) and the final metrics in "
+          f"{run_s:.2f} s: gn_elbo {res['gn_elbo']:.6g}, "
           f"sample KL {res['sample_kl']:.6g}, JSD {res['jsd']:.6g}; hand-written kernel launches "
           f"{counts} (none on this path); after warm-up, {TOY_PROFILE_ITERS} iterations each: "
-          + "; ".join(parts) + f"; one intro step card vs CPU, TF32 off: loss_e rel "
+          + "; ".join(parts) + f"; the trainer's single step (one_step), {len(script)} steps "
+          f"({SINGLE_STEPS} vanilla, then intro, then intro with injected draws; an LR fill "
+          f"after every step and the deterministic forward between replays) against the eager "
+          f"steps, TF32 off, cuDNN deterministic: "
+          + single_line(compared, g_counts, g_captured, g_graphs)
+          + f"; one intro step card vs CPU, TF32 off: loss_e rel "
           f"{rel['loss_e']:.2e}, loss_d rel {rel['loss_d']:.2e} (tolerance {TOY_RTOL:g}); "
           f"on {card}", flush=True)
+    return prof
 
 
 FID_IMAGES = 2048      # the with_fid CIFAR run: its images, and the real and fake images a FID
@@ -2423,11 +2721,13 @@ def phase_remat_image(device, card: str):
     """The image step with remat at the CIFAR-10 recipe's width and
     scan_steps 8, deterministic routes: 16 steps as two graph calls against
     16 eager remat steps, and against 16 graphed steps without remat, all
-    bit-equal; u8norm launches one a step; ms/step and peak device memory
-    with remat off and on."""
+    bit-equal; u8norm launches one a step; at scan_steps 1 the trainer's
+    route with remat against the eager remat step over ``single_script``;
+    ms/step and peak device memory with remat off and on."""
     import torch
 
     from soft_intro_vae_torch.train.image import build_image_training
+    from soft_intro_vae_torch.train.step import INTRO_NOISES
 
     n = 16
     spec, ds = image_dataset(n * 32, seed=11)
@@ -2459,6 +2759,19 @@ def phase_remat_image(device, card: str):
     check(int(graph_run[0].model.state_dict()["encoder.main.1.num_batches_tracked"]) == 5 * n,
           "remat advanced num_batches_tracked more than once a forward")
     del graph_run, eager_run, plain_run, sp, plain
+    # the trainer's route at scan_steps 1 with remat: the recomputes in each graph
+    script = single_script(
+        xs, lambda i: seeded_draws(device, 32, cfg.z_dim, 60 + i, INTRO_NOISES))
+    with exact_routes(deterministic_algorithms=True):
+        graph_run, eager_run, counts1, captured1, graphs1, freed = single_graph_against_eager(
+            lambda: build_image_training(dataclasses.replace(cfg, remat=True), spec), script)
+    differ, worst, compared1 = compare_runs(graph_run, eager_run)
+    check(counts1["u8norm"] == len(script) and captured1 == {"u8norm": 3} and graphs1 == 3
+          and freed, f"remat single-step run: device launches {counts1}, captured {captured1}, "
+          f"{graphs1} graphs, vanilla graphs freed {freed}")
+    check(not differ, f"remat image single-step graph against eager: {len(differ)} of "
+          f"{compared1} tensors differ (first {differ[:6]}), max |diff| {worst!r}")
+    del graph_run, eager_run
     equal_s = time.perf_counter() - t0
     timed = {}
     for remat in (False, True):
@@ -2473,7 +2786,10 @@ def phase_remat_image(device, card: str):
           f"steps without remat: all {compared} tensors bit-equal (metrics, parameters, BN "
           f"buffers with num_batches_tracked {5 * n} = one a forward, Adam moments and counts, "
           f"generator); u8norm launches {counts['u8norm']} = steps, {captured['u8norm']} "
-          f"recorded in the capture ({equal_s:.2f} s); intro step after warm-up, 16-step "
+          f"recorded in the capture; the trainer's single step (one_step) with remat, "
+          f"{len(script)} steps against the eager remat steps: "
+          + single_line(compared1, counts1, captured1, graphs1)
+          + f" ({equal_s:.2f} s); intro step after warm-up, 16-step "
           f"windows (default TF32 policy): " + "; ".join(
               f"remat {'on' if r else 'off'} {ms:.3f} ms/step (median of "
               f"{'/'.join(f'{w:.3f}' for w in ws)}), peak device memory {gib:.3f} GiB"

@@ -16,7 +16,9 @@ normalizing uint8 batches in the step with the u8norm kernel (ops/u8norm.py):
     own feed, data/prefetch.py).
 
 At K > 1 a call is K steps: a CUDA graph of one step replayed K times
-(train/graph.py); at K = 1 a call is one eager step. Each row runs
+(train/graph.py ``k_steps``); at K = 1 a call is one replay of that graph
+(``one_step``, the trainer's route at its default scan_steps), its capture
+among the warm-up steps. Each row runs
 ``--warmup`` steps, then ``--iters`` timed steps (both rounded to whole
 calls), fenced by ``torch.cuda.synchronize()``; images/s and ms/step count
 steps, not calls. Prints one JSON line: each row's images/s and ms/step,

@@ -4,25 +4,34 @@ package's compiled step programs.
   * ``k_steps``: K train steps a call (``scan_steps > 1``), the counterpart
     of the JAX package's ``jax.lax.scan`` over K reference-exact steps in one
     program (soft_intro_vae_tpu/train/step.py:377-389);
-  * ``one_step``: one style step a call, the counterpart of the JAX style
-    trainer's jitted donated-buffer step per (lod, in_transition)
-    (soft_intro_vae_tpu/train/style_step.py:342-345), its blend a float32
-    0-dim input.
+  * ``one_step``: one step a call, the counterpart of the JAX package's
+    jitted donated-buffer step: the generic step at ``scan_steps == 1``
+    (soft_intro_vae_tpu/train/step.py:390-393; the image, bootstrap, 3D and
+    toy trainers) and the style step per (lod, in_transition)
+    (soft_intro_vae_tpu/train/style_step.py:342-345), whose blend is a
+    float32 0-dim input.
 
 ``k_steps(step)`` turns a one-batch step into ``step(state, xs) -> (state,
 metrics)`` over ``xs`` of shape (K, B, ...), each metric a (K,) tensor under
-the one-batch step's names, as the JAX scan returns them. On the CPU it runs
-the K steps eagerly. On the card it always runs a CUDA graph and raises when
-capture fails; it never falls back to eager steps.
+the one-batch step's names, as the JAX scan returns them. ``one_step(step)``
+keeps the step's own signature, ``step(state, x, *scalars[, draws])``, and
+returns 0-dim metrics. On the CPU both run the steps eagerly. On the card
+they always run a CUDA graph and raise when capture fails; they never fall
+back to eager steps.
 
-The graph holds one step, captured once per (batch shape, dtype) and
-replayed once a step, so a trailing chunk of k < K batches replays it k
-times and capture costs one step whatever K is. Each replay reads its batch
-from a static buffer, and each 0-dim scalar input (the style step's blend)
-from a static slot (device-to-device copies or fills before the replay, on
-the caller's stream), and leaves its metrics in a static row, copied into
-column i of the (M, K) result after the replay: every call returns metrics
-of its own, which later replays do not overwrite. Before its capture a graph
+The graph holds one step, captured once per key and replayed once a step,
+so a trailing chunk of k < K batches replays it k times and capture costs
+one step whatever K is. The key is what a ``jax.jit`` step retraces on: the
+batch's shape and dtype, the number of scalar inputs, and the names, shapes
+and dtypes of the injected draws (``step_key``). Each replay reads its batch
+from a static buffer, each 0-dim scalar input (the style step's blend) from
+a static slot, and each injected draw (the generic step's ``noises``, the
+style step's ``nz``: the JAX package's golden-value hook) from a static
+tensor of its shape (device-to-device copies or fills before the replay, on
+the caller's stream); without draws the step draws from ``state.generator``.
+It leaves its metrics in a static row, copied into column i of the (M, K)
+result after the replay: every call returns metrics of its own, which later
+replays do not overwrite. Before its capture a graph
 runs ``WARMUP_STEPS`` eager steps on a side stream, over one call or several
 (cuDNN and cuBLAS handles and workspaces, Adam's lazy state, the fused
 norm's libraries): they are real steps of the run, and their metrics are
@@ -50,10 +59,12 @@ gradient reduces, the BatchNorms' reduces, the metrics' reduce) are issued
 on the side stream in the warm-up steps, which start NCCL's communicator,
 and are captured with the rest of the step, so a replay runs them too. gloo
 cannot be captured: under gloo a K-step call runs K eager steps, and a
-graphed style step one eager step, as on the CPU, and each says so once.
+``one_step`` call one eager step, as on the CPU, and each says so once.
 
 A graph and its private memory pool live as long as its ``GraphedStep``:
-the style trainer drops a LOD's steps when the LOD driver moves on.
+the style trainer drops a LOD's steps when ``LODDriver`` moves on, and the
+image, 3D and toy trainers drop the vanilla step at the switch to the
+introspective one.
 """
 
 from __future__ import annotations
@@ -61,7 +72,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import warnings
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -99,11 +110,27 @@ def _stack(metrics: Dict[str, torch.Tensor], names) -> torch.Tensor:
     return torch.stack([metrics[n].float() for n in names])
 
 
+def step_key(xs: torch.Tensor, scalars: Sequence = (),
+             draws: Optional[Mapping[str, torch.Tensor]] = None) -> Tuple:
+    """A graph's key for a call on ``xs`` (K, B, ...) with ``scalars`` and
+    ``draws`` (name -> (K, ...) tensor): the batch's shape and dtype, how many
+    scalars, and each draw's name, shape and dtype."""
+    named = tuple(sorted((n, tuple(v.shape[1:]), v.dtype) for n, v in (draws or {}).items()))
+    return tuple(xs.shape[1:]), xs.dtype, len(scalars), named
+
+
+def _args(scalars, draws) -> list:
+    """The step's arguments after the batch: its scalars, then its draws
+    where there are any."""
+    return [*scalars, draws] if draws else list(scalars)
+
+
 @dataclasses.dataclass
 class _Graph:
     graph: "torch.cuda.CUDAGraph"
     x: torch.Tensor                  # the static batch
     slots: List[torch.Tensor]        # the static 0-dim scalar inputs
+    draws: Dict[str, torch.Tensor]   # the static injected draws
     row: torch.Tensor                # the static metrics row
     per_replay: collections.Counter  # kernel launches recorded in the capture
     restarts: Sequence[torch.Generator]  # remat clones of the generator's state
@@ -122,9 +149,11 @@ class GraphedStep:
         self.offsets: Dict[Tuple, List[int]] = {}  # remat restarts seen in warm-up, by key
         self.names: Dict[Tuple, List[str]] = {}  # the step's metric names, by key
 
-    def __call__(self, state, xs: torch.Tensor, *scalars):
+    def __call__(self, state, xs: torch.Tensor, *scalars,
+                 draws: Optional[Dict[str, torch.Tensor]] = None):
         """``xs`` (K, B, ...) on the card; each of ``scalars`` K values
-        (a (K,) float32 tensor on the card, or floats), step i's ``i``-th."""
+        (a (K,) float32 tensor on the card, or floats), step i's ``i``-th;
+        ``draws``, injected draws by name, each a (K, ...) tensor on the card."""
         if not xs.is_cuda:
             raise ValueError(f"a graphed step takes batches on the card, got {xs.device}")
         if self.state is None:
@@ -133,24 +162,30 @@ class GraphedStep:
             raise ValueError("this step's graph was captured for another TrainState; "
                              "build the steps again for a new state")
         k = xs.shape[0]
+        draws = draws or {}
         cur = torch.cuda.current_stream(xs.device)
-        key = (tuple(xs.shape[1:]), xs.dtype)
+        key = step_key(xs, scalars, draws)
+
+        def inputs(i):  # step i's scalars and draws
+            return [s[i] for s in scalars], {n: v[i] for n, v in draws.items()}
+
         done = []
         while key not in self.graphs and len(done) < k and self.warmed[key] < WARMUP_STEPS:
-            i = len(done)
-            done.append(self._warm_up(state, key, xs[i], [s[i] for s in scalars], cur))
+            done.append(self._warm_up(state, key, xs[len(done)], *inputs(len(done)), cur))
         names = self.names[key]
         out = torch.empty((len(names), k), dtype=torch.float32, device=xs.device)
         for i, row in enumerate(done):
             out[:, i].copy_(row)
         if len(done) < k and key not in self.graphs:
             i = len(done)
-            self.graphs[key] = self._capture(state, key, xs[i], [s[i] for s in scalars], names)
+            self.graphs[key] = self._capture(state, key, xs[i], *inputs(i), names)
         for i in range(len(done), k):
             g = self.graphs[key]
             g.x.copy_(xs[i])
             for slot, s in zip(g.slots, scalars):
                 _write(slot, s[i])
+            for n, slot in g.draws.items():
+                slot.copy_(draws[n][i])
             _restart_from(state.generator, g.restarts, g.offsets)
             g.graph.replay()
             out[:, i].copy_(g.row)
@@ -158,7 +193,7 @@ class GraphedStep:
         state.step += k - len(done)  # the warm-up steps advanced it themselves
         return state, dict(zip(names, out))
 
-    def _warm_up(self, state, key, x_i, scalars, cur):
+    def _warm_up(self, state, key, x_i, scalars, draws, cur):
         """One eager step on the side stream: its metrics row."""
         if self.stream is None:
             self.stream = torch.cuda.Stream(x_i.device)
@@ -166,7 +201,7 @@ class GraphedStep:
         x.copy_(x_i)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream), remat.recording(state.generator) as r:
-            _, m = self.step(state, x, *scalars)
+            _, m = self.step(state, x, *_args(scalars, draws))
             self.names[key] = list(m)
             row = _stack(m, self.names[key])
         cur.wait_stream(self.stream)
@@ -174,12 +209,13 @@ class GraphedStep:
         self.offsets[key] = r.offsets
         return row
 
-    def _capture(self, state, key, x_i, scalars, names):
+    def _capture(self, state, key, x_i, scalars, draws, names):
         x_static = torch.empty_like(x_i)
         x_static.copy_(x_i)  # any batch: capture records, it computes nothing
         slots = [torch.empty((), dtype=torch.float32, device=x_i.device) for _ in scalars]
         for slot, s in zip(slots, scalars):
             _write(slot, s)
+        draws_static = {n: v.clone() for n, v in draws.items()}
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
         offsets = self.offsets[key]
@@ -190,7 +226,7 @@ class GraphedStep:
         # thread_local: the prefetch worker keeps copying batches meanwhile
         with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"), \
                 remat.capturing(restarts):
-            _, m = self.step(state, x_static, *slots)
+            _, m = self.step(state, x_static, *_args(slots, draws_static))
             row_static = _stack(m, names)
         state.step = step  # the captured step runs on replay
         global captures
@@ -198,7 +234,8 @@ class GraphedStep:
         per_replay = collections.Counter(
             {k: v - before[k] for k, v in wrapper_counts().items() if v != before[k]})
         captured.update(per_replay)
-        return _Graph(graph, x_static, slots, row_static, per_replay, restarts, offsets)
+        return _Graph(graph, x_static, slots, draws_static, row_static, per_replay, restarts,
+                      offsets)
 
 
 def _write(slot: torch.Tensor, value) -> None:
@@ -254,20 +291,29 @@ def k_steps(step: Callable) -> Callable:
 
 
 def one_step(step: Callable) -> Callable:
-    """``step(state, x, blend)`` (the style step) replayed as a CUDA graph a
-    call on the card: one capture per batch shape after ``WARMUP_STEPS`` eager
-    steps, the blend (a float, or a float32 0-dim tensor on the card) written
-    into the graph's slot; eager on the CPU and under gloo. Returns 0-dim
-    metrics of the call's own."""
+    """``step(state, x, *scalars[, draws])`` replayed as a CUDA graph a call
+    on the card (module doc): one capture per ``step_key`` after
+    ``WARMUP_STEPS`` eager steps; each scalar (the style step's blend: a
+    float, or a float32 0-dim tensor on the card) written into the graph's
+    slot, and ``draws``, the last argument where it is a mapping (the steps'
+    injected draws by name, arrays or tensors), copied into the graph's own
+    tensors; eager on the CPU and under gloo. Returns 0-dim metrics of the
+    call's own. ``.eager`` is ``step``, ``.graphed`` its ``GraphedStep``."""
     graphed = GraphedStep(step)
     said = []
+    name = getattr(step, "__name__", "step")
 
-    def run(state, x: torch.Tensor, blend=1.0):
-        if _eager_on(x, said, "each style step runs eagerly"):
-            return step(state, x, blend)
-        b = blend.view(1) if isinstance(blend, torch.Tensor) else [float(blend)]
-        state, m = graphed(state, x[None], b)
+    def run(state, x: torch.Tensor, *args):
+        if _eager_on(x, said, f"each {name} call runs eagerly"):
+            return step(state, x, *args)
+        draws = None
+        if args and (args[-1] is None or isinstance(args[-1], Mapping)):
+            args, draws = args[:-1], args[-1]
+        scalars = [s.view(1) if isinstance(s, torch.Tensor) else [float(s)] for s in args]
+        draws = {n: torch.as_tensor(v, device=x.device)[None] for n, v in (draws or {}).items()}
+        state, m = graphed(state, x[None], *scalars, draws=draws)
         return state, {k: v[0] for k, v in m.items()}
 
+    run.eager = step
     run.graphed = graphed
     return run

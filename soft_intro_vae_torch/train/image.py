@@ -26,10 +26,16 @@ on disk the metric is ``fid_selfconsistent``. Between K-step calls the FID
 reads the decoder in eval mode and draws its noise from a generator of its
 own, so the captured graph and its generator are left as they were.
 
-With ``scan_steps`` K > 1, K host batches go to the device as one (K, B, H,
-W, C) transfer, the last chunk of an epoch shorter where the batches run
-out, and one K-step call takes each chunk: a CUDA graph of one step replayed
-once a batch on the card, K eager steps on the CPU (train/graph.py).
+On the card every step is a replay of a CUDA graph of one step
+(train/graph.py), the counterpart of the JAX trainer's jitted step: at
+``scan_steps`` 1 one replay a batch; with ``scan_steps`` K > 1, K host
+batches go to the device as one (K, B, H, W, C) transfer, the last chunk of
+an epoch shorter where the batches run out, and one K-step call replays the
+graph once a batch of the chunk. On the CPU the steps run eagerly. The work
+between steps (figures, NaN checks, FID, saves, the bootstrap target's sync,
+a copy into the target's own tensors) leaves the graphs as they are. The
+vanilla step, and its graphs with their memory pool, are dropped at the
+switch to the introspective step.
 
 ``remat`` checkpoints every encoder, decoder and target-decoder forward of
 the steps (train/step.py, models/remat.py): bit-equal to the plain steps,
@@ -283,6 +289,10 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
         if epoch % cfg.save_interval == 0 and epoch > 0:
             ckpt.save(state, epoch, cur_iter, async_save=True)  # a host snapshot, then a thread
         step_fn = vanilla_step if epoch < cfg.num_vae else intro_step
+        if epoch >= cfg.num_vae and vanilla_step is not None:
+            vanilla_step = None  # its graphs and their memory pool (train/graph.py)
+            if state.device.type == "cuda":
+                torch.cuda.empty_cache()
 
         def host_batches(epoch=epoch):
             # (seed, epoch) seeding: shuffle and augment draws are a pure

@@ -69,7 +69,7 @@ from soft_intro_vae_torch.ops.losses import (
 from soft_intro_vae_torch.ops.u8norm import u8_to_unit_nchw
 from soft_intro_vae_torch.parallel.collectives import GradReducer, all_reduce_metrics
 from soft_intro_vae_torch.parallel.mesh import local_rows, randn_rows
-from soft_intro_vae_torch.train.graph import k_steps
+from soft_intro_vae_torch.train.graph import k_steps, one_step
 from soft_intro_vae_torch.train.state import TrainState
 
 Tensor = torch.Tensor
@@ -175,13 +175,18 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
     table is looked up; without a table a uint8 batch raises.
     ``cfg.bootstrap`` needs a state with a ``target_decoder``.
 
-    With ``scan_steps > 1`` the signature becomes ``step(state, xs: (K, B,
-    ...)) -> (state, metrics: (K,) each)``, as the JAX scan's: K steps a
-    call, a CUDA graph replayed once a step on the card, eager steps on the
-    CPU (train/graph.py). ``scan_steps == 1`` steps are eager everywhere.
+    With ``scan_steps == 1`` each step is ``train/graph.py one_step`` of
+    the eager step, the counterpart of the JAX package's jitted step: on the
+    card a CUDA graph replayed once a call, one capture per batch shape and
+    set of injected draws, and a failed capture raises; eager on the CPU and
+    under gloo. ``.eager`` is the eager step itself. With ``scan_steps > 1``
+    the signature becomes ``step(state, xs: (K, B, ...)) -> (state,
+    metrics: (K,) each)``, as the JAX scan's: K steps a call, a CUDA graph
+    replayed once a step on the card, eager steps on the CPU
+    (``train/graph.py k_steps``).
 
-    ``remat=True`` checkpoints each subnet forward (module doc); a K-step
-    graph then captures the recomputes inside its backward.
+    ``remat=True`` checkpoints each subnet forward (module doc); a graph
+    then captures the recomputes inside its backward.
     """
     if scan_steps < 1:
         raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
@@ -330,6 +335,5 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
         )
         return state, all_reduce_metrics(metrics)
 
-    if scan_steps > 1:
-        return k_steps(vanilla_step), k_steps(intro_step)
-    return vanilla_step, intro_step
+    wrap = k_steps if scan_steps > 1 else one_step
+    return wrap(vanilla_step), wrap(intro_step)

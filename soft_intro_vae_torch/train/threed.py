@@ -10,6 +10,12 @@ state (:444-449) and resume from the latest epoch (:191-198).
 The per-epoch shuffle is ``np.random.default_rng((seed + 2, epoch))``, as in
 the JAX trainer, so both packages see the same batches. Step metrics stay on
 the device and are fetched once per epoch (and every ``nan_check_iter`` steps).
+On the card each step is a replay of a CUDA graph of one step
+(train/graph.py ``one_step``), the counterpart of the JAX trainer's jitted
+step, the six chamfer searches of an intro step recorded in it; the valid
+JSD, the figure panel and the checkpoints run between replays and leave the
+graphs as they are. The vanilla step and its graphs are dropped at the
+switch to the introspective step. On the CPU the steps run eagerly.
 
 Data parallelism (parallel/): in a process group ``batch_size`` is the
 global batch and every rank gathers its rows of each batch from the
@@ -114,8 +120,9 @@ class ThreeDConfig:
 
 
 def build_3d_training(cfg: ThreeDConfig, scan_steps: int = 1):
-    """Returns ``(state, vanilla_step, intro_step)`` on ``cfg.device``; with
-    ``scan_steps`` K > 1 the steps take (K, B, N, 3) clouds (train/graph.py)."""
+    """Returns ``(state, vanilla_step, intro_step)`` on ``cfg.device``, each a
+    CUDA graph replayed once a call on the card (train/graph.py); with
+    ``scan_steps`` K > 1 the steps take (K, B, N, 3) clouds."""
     if cfg.reconstruction_loss.lower() != "chamfer":
         raise ValueError(f"Invalid reconstruction loss. Accepted `chamfer`, got: {cfg.reconstruction_loss}")
     check_world(cfg.num_devices, cfg.batch_size)
@@ -232,6 +239,10 @@ def train_soft_intro_vae_3d(cfg: ThreeDConfig):
     bs = cfg.batch_size
     for epoch in range(starting_epoch, cfg.max_epochs + 1):
         step_fn = vanilla_step if epoch < cfg.num_vae else intro_step
+        if epoch >= cfg.num_vae and vanilla_step is not None:
+            vanilla_step = None  # its graphs and their memory pool (train/graph.py)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
         data_rng = np.random.default_rng((data_seed, epoch))
         idx = data_rng.permutation(n)
         idx_dev = torch.from_numpy(idx).to(device)

@@ -7,11 +7,17 @@ dim_scale 0.5 (:515); MultiStepLR milestones (10000, 15000), gamma 0.1,
 stepped every iteration (:510-512, 659-660); the NaN abort (:656-658); the
 final gnELBO, sample KL and JSD appended to a results log (:703-724).
 
-The step is the port's generic step (train/step.py), eager, one iteration a
-call: the JAX toy trainer has no ``scan_steps``. Metrics are fetched at the
-``test_iter`` cadence only. Plot and metric samples come from generators of
-their own, seeded from the run's seed, so they never move the training draws
-(the JAX trainer folds them out of ``state.rng``).
+The step is the port's generic step (train/step.py), one iteration a call:
+the JAX toy trainer has no ``scan_steps``, its iteration is one jitted step.
+On the card each call replays a CUDA graph of the step (train/graph.py
+``one_step``); the per-iteration LR fills write the optimizers' LR tensors
+in place, which the replays read, and the ``test_iter`` reads take the
+call's own metrics and run the deterministic forward between replays. The
+vanilla step and its graphs are dropped at ``num_vae``. On the CPU the step
+runs eagerly. Metrics are fetched at the ``test_iter`` cadence only. Plot
+and metric samples come from generators of their own, seeded from the run's
+seed, so they never move the training draws (the JAX trainer folds them out
+of ``state.rng``).
 """
 
 from __future__ import annotations
@@ -70,7 +76,8 @@ class ToyConfig:
 
 
 def build_toy(cfg: ToyConfig):
-    """Returns ``(state, vanilla_step, intro_step)`` on ``cfg.device``."""
+    """Returns ``(state, vanilla_step, intro_step)`` on ``cfg.device``, each a
+    CUDA graph replayed once a call on the card (train/graph.py)."""
     device = resolve_device(cfg.device)
     seed = cfg.seed if cfg.seed != -1 else int(time.time()) % (2**31)
     # the nets are made from the seed without touching the global RNG
@@ -126,6 +133,10 @@ def train_soft_intro_vae_toy(cfg: ToyConfig, sampler: Optional[ToyDataset] = Non
     for it in range(cfg.n_iter):
         batch = torch.from_numpy(sampler.next_batch(batch_size=cfg.batch_size)).to(state.device)
         step_fn = vanilla_step if it < cfg.num_vae else intro_step
+        if it >= cfg.num_vae and vanilla_step is not None:
+            vanilla_step = None  # its graphs and their memory pool (train/graph.py)
+            if state.device.type == "cuda":
+                torch.cuda.empty_cache()
         state, metrics = step_fn(state, batch)
         state.set_lr(lr_sched_e(it + 1), lr_sched_d(it + 1))  # per iteration (:659-660)
         if it % cfg.test_iter == 0 or it == cfg.n_iter - 1:

@@ -350,8 +350,9 @@ def _float_adam(opt, module):
 
 @pytest.mark.cuda
 def test_graph_epochs_equal_single_steps_on_the_card(tmp_path, cuda_device):
-    """On the card scan_steps=3 replays CUDA graphs; the run equals the eager
-    scan_steps=1 run to the bit (TF32 off, cuDNN deterministic)."""
+    """On the card scan_steps=3 replays CUDA graphs; the run equals the
+    scan_steps=1 run, one graph replay a step, to the bit (TF32 off, cuDNN
+    deterministic)."""
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:

@@ -190,14 +190,16 @@ def test_draws_come_from_the_state_generator():
 
 def _k_step_runs(fresh_state, phase, xs, scan, device="cpu"):
     """(state, metrics) after the batches of ``xs``: one K-step call of
-    ``scan`` steps each, or single steps with their metrics stacked."""
+    ``scan`` steps each, or single eager steps (``.eager``, the step that
+    ``scan_steps=1`` replays as a graph on the card) with their metrics
+    stacked."""
     state = _port_state(fresh_state())
     if device != "cpu":
         state = TrainState.create(state.model, device=torch.device(device), seed=0, lr_e=LR, lr_d=LR)
     step = build_train_steps(cfg=StepConfig(**CFG), scan_steps=scan)[phase]
     xs = torch.tensor(xs, device=device)
     if scan == 1:
-        ms = [step(state, x)[1] for x in xs]
+        ms = [step.eager(state, x)[1] for x in xs]
         return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
     chunks = [step(state, xs[i:i + scan])[1] for i in range(0, len(xs), scan)]
     return state, {k: torch.cat([m[k] for m in chunks]) for k in chunks[0]}

@@ -7,13 +7,17 @@ Builds the toy trainer of soft_intro_vae_torch at the CLI recipe's width
 (8Gaussians, z 2, 3 hidden layers of 256, batch 512, beta_rec/beta_kl/
 beta_neg 0.2/0.3/0.9) and times the trainer's own iteration, vanilla and
 introspective: a host batch from the sampler, its copy to the card, one
-eager step and the two LR fills. After a warm-up, ``--iters`` iterations on
-the host clock (ending in a synchronise), then as many traced with
-torch.profiler: device busy time, its idle share of the untraced iteration
-and of the traced window, and device operations (kernels, copies, fills) an
-iteration. Prints the card's name and power limit, a line a phase and one
-JSON line; ``--out`` writes the JSON to a file. Fails when the trace holds
-no device time. Imports nothing of JAX.
+step and the two LR fills. Each phase runs by two routes, each on a fresh
+state from the same seed: "graphed", the trainer's route on the card
+(train/graph.py ``one_step``: a CUDA graph replayed a step), and "eager",
+the step itself. After a warm-up (a graph's 3 eager steps and its capture
+among it), ``--iters`` iterations on the host clock (ending in a
+synchronise), then as many traced with torch.profiler: device busy time, its
+idle share of the untraced iteration and of the traced window, device
+operations (kernels, copies, fills) an iteration, and the peak device memory
+of the route. Prints the card's name and power limit, a line a phase and
+route and one JSON line; ``--out`` writes the JSON to a file. Fails when the
+trace holds no device time. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -75,8 +79,10 @@ def profile_iterations(iteration, iters: int, warmup: int = 5) -> dict:
 
 
 def toy_phases(device, iters: int, seed: int = 0) -> dict:
-    """{"vanilla": ..., "intro": ...}: ``profile_iterations`` of the trainer's
-    iteration (train/toy.py) with each step."""
+    """{"vanilla graphed": ..., "vanilla eager": ..., "intro graphed": ...,
+    "intro eager": ...}: ``profile_iterations`` of the trainer's iteration
+    (train/toy.py) with each step, graphed (the trainer's route) and eager,
+    each with its peak device memory in GiB (``peak_gib``)."""
     import torch
 
     from soft_intro_vae_torch.data.toy import ToyDataset
@@ -85,16 +91,23 @@ def toy_phases(device, iters: int, seed: int = 0) -> dict:
     cfg = ToyConfig(seed=seed, device=str(device), verbose=False, **RECIPE)
     out = {}
     for phase in ("vanilla", "intro"):
-        state, vanilla, intro = build_toy(cfg)
-        step = vanilla if phase == "vanilla" else intro
-        sampler = ToyDataset(cfg.dataset, seed=seed)
+        for route in ("graphed", "eager"):
+            torch.cuda.empty_cache()
+            state, vanilla, intro = build_toy(cfg)  # (the first CUDA call must not be the reset)
+            torch.cuda.reset_peak_memory_stats(device)
+            step = vanilla if phase == "vanilla" else intro
+            step = step if route == "graphed" else step.eager
+            sampler = ToyDataset(cfg.dataset, seed=seed)
 
-        def iteration():
-            batch = torch.from_numpy(sampler.next_batch(cfg.batch_size)).to(state.device)
-            step(state, batch)
-            state.set_lr(cfg.lr_e, cfg.lr_d)
+            def iteration():
+                batch = torch.from_numpy(sampler.next_batch(cfg.batch_size)).to(state.device)
+                step(state, batch)
+                state.set_lr(cfg.lr_e, cfg.lr_d)
 
-        out[phase] = profile_iterations(iteration, iters)
+            r = profile_iterations(iteration, iters)
+            r["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+            out[f"{phase} {route}"] = r
+            del state, vanilla, intro, step
     return out
 
 
@@ -119,7 +132,8 @@ def main(argv=None) -> int:
               f"untraced, {r['traced_ms_iter']:.3f} traced; device busy {r['busy_ms_iter']:.3f} ms, "
               f"idle {r['idle_share_untraced']:.3f} of the untraced iteration, "
               f"{r['idle_share_traced']:.3f} of the traced window; "
-              f"{r['device_ops_iter']:.0f} device operations an iteration")
+              f"{r['device_ops_iter']:.0f} device operations an iteration; peak device memory "
+              f"{r['peak_gib']:.4f} GiB")
     line = json.dumps({"card": card, **res})
     print(line)
     if args.out:
