@@ -189,6 +189,27 @@ Phases, each printing one line; any failure exits non-zero:
               ``style_mod``, ``instance_norm``, ``avg_pool_2x``,
               ``upsample_nearest_2x`` within 1e-6; the subpackages' exports.
               Its chamfer launches are comparisons, not counted.
+17. resume:  each trainer's course straight against the same course
+              resumed by a fresh trainer call from the straight run's own
+              checkpoint (written after graph replays), under exact routes:
+              3D at configs/soft_intro_vae_hp.json (epoch 2 of 2 resumed),
+              the CIFAR-10 recipe at scan_steps 8 (``pretrained`` +
+              ``start_epoch``, epoch 1 of 2), the style trainer at ffhq256
+              width across LOD 0 -> 1 (EPOCHS_PER_LOD 4, batch 128, the
+              checkpoint at the end of epoch 4, inside LOD 1's blended
+              transition), the toy CLI recipe (the last 150 of 300 iterations
+              as ``pretrained``, the sampler where the straight run left it);
+              final weights, optimizer state, step and generator state
+              bit-equal; graphs captured and kernel launches on each side;
+18. carry:   the JAX package's checkpoints under
+              tests/torch_port_fixtures/jax_checkpoints/ (3D at narrow widths
+              and 256 points; style at LOD 1, tiny channels) loaded by
+              ``Checkpointer.load_latest``, warm-up steps and the capture, the
+              checkpoint loaded again into the graph's tensors, then the 2
+              steps JAX recorded beside it as replays through the chamfer and
+              fused-norm kernels: losses within 1e-4 (3D) and 1e-3 (style) of
+              JAX's, launches counted; eval_3d's sweep over the two 3D files
+              on JAX's prior draws picks JAX's file, JSD within 1e-6.
 Launch counts are launches on the device: a wrapper's calls, less those
 recorded into a CUDA graph's capture, plus those its replays made
 (train/graph.py).
@@ -3369,6 +3390,298 @@ def phase_api(device, card: str) -> None:
           f"{exported} names exported by ops, models, metrics, train, parallel", flush=True)
 
 
+# the resume and carry phases: the port's own resume at full width, and the
+# JAX package's checkpoints (tests/torch_port_fixtures/jax_checkpoints/,
+# written by make_jax_checkpoints.py there) continued through the kernels
+FIXTURES = os.path.join(ROOT, "tests", "torch_port_fixtures", "jax_checkpoints")
+RESUME_STYLE_OPTS = ["DATASET.SYNTHETIC", "true", "DATASET.SYNTHETIC_N", "512",
+                     "TRAIN.EPOCHS_PER_LOD", "4", "TRAIN.TRAIN_EPOCHS", "6"]
+RESUME_STYLE_AT = 4    # LOD 1's first epoch: the transition runs over epochs 4 and 5
+RESUME_TOY_AT = 150    # iterations before the toy checkpoint: 100 vanilla, 50 intro
+CARRY_RTOL = {"threed": 1e-4, "style": 1e-3}  # the kernel routes' bounds (phases 4, 7)
+CARRY_JSD_ATOL = 1e-6
+
+
+def train_state_snapshot(state) -> dict:
+    """A generic train state's tensors: the nets (BN buffers included), both
+    Adams' moments and counts, the LRs, the step and the generator's state."""
+    return {"model": state.model.state_dict(), "opt_e": state.opt_e.state_dict()["state"],
+            "opt_d": state.opt_d.state_dict()["state"], "lr": [state.lr_e, state.lr_d],
+            "step": state.step, "generator": state.generator.get_state()}
+
+
+def resumed_against_straight(name: str, straight, resumed, snapshot, kernel=None) -> str:
+    """Run ``straight()`` (the whole course, writing its checkpoints) and
+    ``resumed()`` (a fresh trainer call from one of them), each returning its
+    final state, under exact routes; fail unless each side captured a graph
+    and launched ``kernel`` (where the path has one) and the two final states
+    are bit-equal. Returns the phase's line part: captures and launches a side."""
+    import torch
+
+    from soft_intro_vae_torch.utils.checkpoint import to_host
+
+    sides = {}
+    for side, run in (("straight", straight), ("resumed", resumed)):
+        torch.cuda.empty_cache()
+        reset_counts()
+        graphs = captured_graphs()
+        t0 = time.perf_counter()
+        with exact_routes(deterministic_algorithms=True):
+            state = run()
+            torch.cuda.synchronize()
+        sides[side] = (to_host(snapshot(state)), time.perf_counter() - t0,
+                       captured_graphs() - graphs,
+                       {k: v for k, v in read_counts().items() if v})
+        del state
+        check(sides[side][2] > 0 and (kernel is None or sides[side][3].get(kernel, 0) > 0),
+              f"resume {name}, {side}: {sides[side][2]} graphs captured, launches {sides[side][3]}")
+    differ = []
+    compared = _tensors_equal(sides["straight"][0], sides["resumed"][0], name, differ)
+    check(not differ, f"resume {name}: {len(differ)} of {compared} tensors differ from the "
+          f"straight run (first {differ[:6]})")
+    return (f"{name}: all {compared} tensors bit-equal; " + ", ".join(
+        f"{side} {s:.2f} s, {g} graphs captured, launches {c or 'none'}"
+        for side, (_, s, g, c) in sides.items()))
+
+
+def phase_resume(device, card: str, results_dir: str) -> None:
+    """Each trainer's course straight, against the same course resumed from
+    one of its checkpoints by a fresh trainer call, both under exact routes:
+    final weights, optimizer state, step and generator state bit-equal. The
+    checkpoint is written by the straight run after graph replays (the
+    trainers' async saves snapshot the state at the call), and the resumed
+    call starts with eager warm-up steps and a capture where the straight
+    run replays."""
+    import shutil
+
+    from soft_intro_vae_torch.data.toy import ToyDataset
+    from soft_intro_vae_torch.train import style
+    from soft_intro_vae_torch.train.image import train_soft_intro_vae
+    from soft_intro_vae_torch.train.threed import ThreeDConfig, train_soft_intro_vae_3d
+    from soft_intro_vae_torch.train.toy import ToyConfig, train_soft_intro_vae_toy
+    from tools.torch_profile_toy import RECIPE
+
+    def place(src: str, dst_dir: str, names, pointer: bool = False) -> None:
+        os.makedirs(dst_dir, exist_ok=True)
+        for n in names:
+            shutil.copy(os.path.join(src, n), dst_dir)
+        if pointer:
+            with open(os.path.join(dst_dir, "last_checkpoint"), "w") as f:
+                f.write(names[0])
+
+    parts = []
+    # 3D at configs/soft_intro_vae_hp.json: 2 intro epochs of 8 steps, the
+    # second resumed from the first's checkpoint
+    run3d = os.path.join(results_dir, "3d")
+    cfg = dataclasses.replace(
+        ThreeDConfig.from_json(os.path.join(ROOT, "configs", "soft_intro_vae_hp.json")),
+        use_synthetic=True, synthetic_n=TRAIN_N, max_epochs=2, valid_frequency=10**6,
+        save_frequency=1, seed=0, resume=True, verbose=False, device=str(device))
+
+    def resumed_3d():
+        place(os.path.join(run3d, "straight", "weights"), os.path.join(run3d, "resumed", "weights"),
+              ["model_epoch_1_iter_0.ckpt"])
+        return train_soft_intro_vae_3d(dataclasses.replace(
+            cfg, results_dir=os.path.join(run3d, "resumed")))[0]
+
+    parts.append(resumed_against_straight(
+        "3d (2048 points, batch 32, z 128; epoch 2 resumed)",
+        lambda: train_soft_intro_vae_3d(dataclasses.replace(
+            cfg, results_dir=os.path.join(run3d, "straight")))[0],
+        resumed_3d, train_state_snapshot, "chamfer_nearest"))
+    shutil.rmtree(run3d)
+
+    # the CIFAR-10 recipe at scan_steps 8 on uint8 images: a vanilla and an
+    # intro epoch, the intro epoch resumed as ``pretrained`` + ``start_epoch``
+    spec, ds = image_dataset()
+    cfg = image_config(device, os.path.join(results_dir, "image"), scan_steps=IMAGE_SCAN,
+                       save_interval=1)
+    steps = len(ds) // cfg.batch_size
+    saved = os.path.join(cfg.result_dir, "saves", f"cifar10_soft_intro_betas_1.0_256.0_1.0_"
+                                                  f"model_epoch_1_iter_{steps}.ckpt")
+    parts.append(resumed_against_straight(
+        "image (CIFAR-10 recipe, scan_steps 8, u8norm; epoch 1 resumed)",
+        lambda: train_soft_intro_vae(cfg, ds, spec)[0],
+        lambda: train_soft_intro_vae(dataclasses.replace(
+            cfg, pretrained=saved, start_epoch=1, result_dir=cfg.result_dir + "_resumed"),
+            ds, spec)[0], train_state_snapshot, "u8norm"))
+    shutil.rmtree(cfg.result_dir)
+    shutil.rmtree(cfg.result_dir + "_resumed")
+
+    # the style trainer at ffhq256 width across LOD 0 -> 1, resumed from the
+    # end of epoch 4, the middle of LOD 1's blended transition
+    cfg = style_config(device, os.path.join(results_dir, "style"), RESUME_STYLE_OPTS)
+    cfg = dataclasses.replace(cfg, resume=True)
+    batch = cfg.lod_2_batch_tables["1GPU"][1]
+    name = (f"{cfg.name}_model_epoch_{RESUME_STYLE_AT}_iter_"
+            f"{(RESUME_STYLE_AT + 1) * cfg.synthetic_n // batch}.ckpt")
+    arts = os.path.join(cfg.output_dir, "training_artifacts")
+
+    def resumed_style():
+        out = cfg.output_dir + "_resumed"
+        place(arts, os.path.join(out, "training_artifacts"), [name, name + ".aux.json"],
+              pointer=True)
+        shutil.rmtree(cfg.output_dir)  # ~0.65 GB a checkpoint
+        state, summary = style.train_style_soft_intro_vae(dataclasses.replace(cfg, output_dir=out))
+        check(summary["lods_seen"] == [0, 1] and summary["blended_steps"] == summary["steps"] > 0,
+              f"resumed style run: {summary['lods_seen']}, {summary['blended_steps']} blended "
+              f"of {summary['steps']} steps")
+        return state
+
+    parts.append(resumed_against_straight(
+        "style (ffhq256 width, LODs 0-1, batch 128; epoch 5, the second of LOD 1's blended "
+        "transition, resumed)",
+        lambda: style.train_style_soft_intro_vae(cfg)[0], resumed_style,
+        lambda state: style_snapshot(state, []), "bias_act_norm_fwd"))
+    shutil.rmtree(cfg.output_dir + "_resumed")
+
+    # the toy CLI recipe: 300 iterations, 100 vanilla; the last 150 resumed as
+    # ``pretrained``, with the sampler at the straight run's point
+    cfg = ToyConfig(n_iter=TOY_ITERS, num_vae=TOY_NUM_VAE, test_iter=100, seed=0,
+                    save_checkpoints=True, save_interval=RESUME_TOY_AT - 1,
+                    result_dir=os.path.join(results_dir, "toy"), device=str(device),
+                    verbose=False, **RECIPE)
+
+    def resumed_toy():
+        sampler = ToyDataset(distr=cfg.dataset, seed=cfg.seed)
+        for _ in range(RESUME_TOY_AT):
+            sampler.next_batch(batch_size=cfg.batch_size)
+        saved = os.path.join(cfg.result_dir, "saves",
+                             f"model_epoch_{RESUME_TOY_AT - 1}_iter_{RESUME_TOY_AT - 1}.ckpt")
+        return train_soft_intro_vae_toy(dataclasses.replace(
+            cfg, pretrained=saved, n_iter=TOY_ITERS - RESUME_TOY_AT, save_checkpoints=False,
+            num_vae=max(0, TOY_NUM_VAE - RESUME_TOY_AT)), sampler)[0]
+
+    parts.append(resumed_against_straight(
+        f"toy (CLI recipe, {TOY_ITERS} iterations; the last {TOY_ITERS - RESUME_TOY_AT} resumed)",
+        lambda: train_soft_intro_vae_toy(cfg)[0], resumed_toy, train_state_snapshot))
+    shutil.rmtree(cfg.result_dir)
+    print(f"resume: each trainer straight against resumed from its checkpoint by a fresh call "
+          f"(TF32 off, deterministic): " + "; ".join(parts) + f"; on {card}", flush=True)
+
+
+def _recorded(name: str) -> dict:
+    import numpy as np
+
+    with np.load(os.path.join(FIXTURES, name, "next_steps.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _carry(step, state, ckpt, xs, args) -> tuple:
+    """The recorded steps after a JAX checkpoint as graph replays: the
+    checkpoint loaded, warm-up steps and the capture on the first batch, the
+    checkpoint loaded again into the same tensors, then one replay a batch.
+    Returns (metrics of the replays, device launches, graphs captured by them)."""
+    import torch
+
+    from soft_intro_vae_torch.train.graph import WARMUP_STEPS
+
+    ckpt.load_latest(state)
+    for _ in range(WARMUP_STEPS + 1):
+        step(state, xs[0], *args[0])
+    ckpt.load_latest(state)
+    reset_counts()
+    graphs = captured_graphs()
+    ms = [{k: float(v) for k, v in step(state, x, *a)[1].items()} for x, a in zip(xs, args)]
+    torch.cuda.synchronize()
+    return ms, read_counts(), captured_graphs() - graphs
+
+
+def phase_carry(device, card: str) -> None:
+    """The JAX package's checkpoints continued on the card: a 3D state at
+    narrow widths and 256 points through the chamfer kernel, a style state at
+    LOD 1 through the fused-norm kernels, each loaded by ``Checkpointer.
+    load_latest`` from the directory holding it and run on for the 2 steps
+    JAX recorded beside it, as replays of the trainers' graphed step; the
+    losses held to JAX's (CPU) within the kernel routes' bounds. Then
+    eval_3d's sweep over the two 3D files on JAX's prior draws: JAX's pick,
+    its JSD within 1e-6."""
+    import numpy as np
+    import torch
+
+    from soft_intro_vae_torch.cli import eval_3d
+    from soft_intro_vae_torch.train.graph import one_step
+    from soft_intro_vae_torch.train.step import INTRO_NOISES
+    from soft_intro_vae_torch.train.style import StyleConfig, build_style_training
+    from soft_intro_vae_torch.train.style_step import NZ_KEYS, StyleStepConfig, build_style_steps
+    from soft_intro_vae_torch.train.threed import ThreeDConfig, build_3d_training
+    from soft_intro_vae_torch.utils.checkpoint import Checkpointer
+
+    def losses_line(name, ms, rec):
+        rel = max(abs(m[k] / float(rec[f"metric_{k}"][i]) - 1)
+                  for i, m in enumerate(ms) for k in ("loss_e", "loss_d"))
+        check(rel <= CARRY_RTOL[name], f"carry {name}: losses {ms} against JAX's "
+              f"{[(float(rec['metric_loss_e'][i]), float(rec['metric_loss_d'][i])) for i in (0, 1)]}")
+        return rel
+
+    parts = []
+    directory = os.path.join(FIXTURES, "threed")
+    rec = _recorded("threed")
+    cfg = dataclasses.replace(
+        ThreeDConfig.from_json(os.path.join(ROOT, "configs", "soft_intro_vae_hp.json")),
+        **json.loads(str(rec["config"])), device=str(device))
+    state, _, intro = build_3d_training(cfg)
+    xs = [torch.from_numpy(x).to(device) for x in rec["x"]]
+    args = [({k: torch.from_numpy(rec[f"draw_{k}"][i]).to(device) for k in INTRO_NOISES},)
+            for i in range(2)]
+    with exact_routes():
+        ms, counts, graphs = _carry(intro, state, Checkpointer(directory), xs, args)
+    check(counts["chamfer_nearest"] == 12 and graphs == 0 and state.step == 6,
+          f"carry threed: chamfer launches {counts['chamfer_nearest']} in 2 replays (expected "
+          f"12), {graphs} graphs captured by them, step {state.step}")
+    rel = losses_line("threed", ms, rec)
+    parts.append(f"3D (PointNet widths {cfg.conv_channels}/{cfg.hidden}, {cfg.n_points} points, "
+                 f"batch {cfg.batch_size}, from model_epoch_2_iter_4.ckpt): 2 replays, losses "
+                 f"within rel {rel:.2e} of JAX's (bound {CARRY_RTOL['threed']:g}), chamfer_nearest "
+                 f"launches {counts['chamfer_nearest']}")
+
+    # eval_3d's sweep over both 3D files, on the JAX package's draws
+    names = sorted(k[len("jsd_"):] for k in rec if k.startswith("jsd_") and k != "jsd_noise")
+    want = min(names, key=lambda n: float(rec["jsd_" + n]))
+    with no_tf32():
+        path, jsd = eval_3d.find_best_epoch(cfg, directory, noises=list(rec["jsd_noise"]))
+    check(os.path.basename(path) == want
+          and abs(jsd - float(rec["jsd_" + want])) <= CARRY_JSD_ATOL,
+          f"eval_3d sweep: {os.path.basename(path)} jsd {jsd!r}, JAX's {want} "
+          f"{float(rec['jsd_' + want])!r}")
+    parts.append(f"eval_3d sweep over {len(names)} JAX files: {want} as JAX picks it, JSD "
+                 f"{jsd:.6f} (JAX {float(rec['jsd_' + want]):.6f})")
+    del state, intro
+
+    directory = os.path.join(FIXTURES, "style")
+    rec = _recorded("style")
+    over = json.loads(str(rec["config"]))
+    lod = over.pop("lod")
+    over.pop("ema_beta")
+    cfg = dataclasses.replace(StyleConfig(), **over, device=str(device))
+    model, state = build_style_training(cfg)
+    scfg = StyleStepConfig(latent_size=cfg.latent_space_size, beta_rec=cfg.beta_rec,
+                           beta_kl=cfg.beta_kl, beta_neg=float(cfg.beta_neg[lod]),
+                           gamma_r=1e-8, scale=cfg.scale)
+    intro = one_step(build_style_steps(model, scfg, lod, False, noise_mode="none")[1])
+    xs = [torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))).to(device)
+          for x in rec["x"]]
+    args = [(1.0, {k: torch.from_numpy(rec[f"draw_{k}"][i]).to(device) for k in NZ_KEYS})
+            for i in range(2)]
+    with exact_routes():
+        ms, counts, graphs = _carry(intro, state, Checkpointer(directory), xs, args)
+    fwd, bwd = (2 * n for n in style_step_launches(lod, 0, 1))
+    check((counts["bias_act_norm_fwd"], counts["bias_act_norm_bwd"]) == (fwd, bwd)
+          and graphs == 0 and state.step == 4,
+          f"carry style: fused-norm launches {counts} in 2 replays (expected {fwd}/{bwd}), "
+          f"{graphs} graphs captured by them, step {state.step}")
+    rel = losses_line("style", ms, rec)
+    parts.append(f"style (LOD {lod}, channels {cfg.start_channel_count}-{cfg.max_channel_count}, "
+                 f"latent {cfg.latent_space_size}, f32, from {cfg.name}_model_epoch_2_iter_2.ckpt): "
+                 f"2 replays, losses within rel {rel:.2e} of JAX's (bound {CARRY_RTOL['style']:g}), "
+                 f"bias_act_norm launches fwd {counts['bias_act_norm_fwd']} / bwd "
+                 f"{counts['bias_act_norm_bwd']}")
+    print(f"carry: JAX checkpoints loaded by Checkpointer.load_latest, warm-up steps and the "
+          f"capture, the checkpoint loaded again into the graph's tensors, then JAX's next 2 "
+          f"steps as replays (TF32 off): " + "; ".join(parts) + f"; on {card}", flush=True)
+
+
+
 def main() -> int:
     import torch
 
@@ -3453,6 +3766,11 @@ def main() -> int:
     lap("dp")
     phase_api(device, card)
     lap("api")
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
+        phase_resume(device, card, results_dir)
+    lap("resume")
+    phase_carry(device, card)
+    lap("carry")
     print(f"timing (s): {', '.join(laps)}; build to last phase "
           f"{time.perf_counter() - began:.1f}", flush=True)
     chamfer["launches"] = counts_3d["chamfer_nearest"]

@@ -13,7 +13,7 @@ that the JAX package's ``models/initializers.py`` imitates.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -40,13 +40,14 @@ class BatchNorm1d(nn.BatchNorm1d):
 
 class PointNetEncoder(nn.Module):
     """(B, N, 3) -> (mu, logvar); per-point conv 3->64->128->256->256->512,
-    each conv -> ReLU -> BN, global max-pool, FC 512->256, two z heads."""
+    each conv -> ReLU -> BN, global max-pool, FC 512->256, two z heads.
+    ``conv_channels`` are the per-point widths, as the JAX module's field."""
 
-    def __init__(self, z_dim: int = 128):
+    def __init__(self, z_dim: int = 128, conv_channels: Sequence[int] = CONV_CHANNELS):
         super().__init__()
         layers = []
         in_ch = 3
-        for ch in CONV_CHANNELS:
+        for ch in conv_channels:
             layers += [nn.Conv1d(in_ch, ch, 1, bias=False), nn.ReLU(inplace=True),
                        BatchNorm1d(ch, eps=1e-5, momentum=0.1)]
             in_ch = ch
@@ -62,14 +63,15 @@ class PointNetEncoder(nn.Module):
 
 
 class PointNetDecoder(nn.Module):
-    """z -> (B, N, 3); MLP z->64->128->512->1024->(3*N) (vae.py:21-47)."""
+    """z -> (B, N, 3); MLP z->64->128->512->1024->(3*N) (vae.py:21-47);
+    ``hidden`` are the MLP's widths, as the JAX module's field."""
 
-    def __init__(self, z_dim: int = 128, n_points: int = 2048):
+    def __init__(self, z_dim: int = 128, n_points: int = 2048, hidden: Sequence[int] = HIDDEN):
         super().__init__()
         self.n_points = n_points
         layers = []
         in_ch = z_dim
-        for ch in HIDDEN:
+        for ch in hidden:
             layers += [nn.Linear(in_ch, ch), nn.ReLU(inplace=True)]
             in_ch = ch
         layers.append(nn.Linear(in_ch, 3 * n_points))
@@ -83,7 +85,8 @@ class PointNetDecoder(nn.Module):
 class SoftIntroVAE3D(nn.Module):
     """Encoder + decoder under the reference's ``encoder.``/``decoder.`` names."""
 
-    def __init__(self, z_dim: int = 128, n_points: int = 2048):
+    def __init__(self, z_dim: int = 128, n_points: int = 2048,
+                 conv_channels: Sequence[int] = CONV_CHANNELS, hidden: Sequence[int] = HIDDEN):
         super().__init__()
-        self.encoder = PointNetEncoder(z_dim=z_dim)
-        self.decoder = PointNetDecoder(z_dim=z_dim, n_points=n_points)
+        self.encoder = PointNetEncoder(z_dim=z_dim, conv_channels=conv_channels)
+        self.decoder = PointNetDecoder(z_dim=z_dim, n_points=n_points, hidden=hidden)

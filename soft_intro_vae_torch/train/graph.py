@@ -50,9 +50,11 @@ optimizer steps read them. The LR is read from the optimizer's LR tensor
 (train/optim.py), so ``set_lr`` between calls takes effect.
 
 A graph reads and writes the state's own tensors: parameters, BN buffers and
-Adam's moments and counts, updated in place. Whatever replaces one of them
-(``load_state_dict`` of an optimizer, a new state) leaves the graph stale;
-load checkpoints before the first call, and build new steps for a new state.
+Adam's moments and counts, updated in place. The states' ``load_state_dict``
+copies a checkpoint into those tensors (train/optim.py ``load_state_dict``
+into the moments and counts the optimizer holds), so a checkpoint loaded
+between calls is what the next replay reads; whatever replaces one of them
+(a new state) leaves the graph stale: build new steps for a new state.
 
 Data parallelism (parallel/mesh.py): under NCCL the step's collectives (the
 gradient reduces, the BatchNorms' reduces, the metrics' reduce) are issued

@@ -49,8 +49,11 @@ def load_state_dict(optimizer: torch.optim.Optimizer, sd: dict) -> None:
     them (the params' device when capturable, the host otherwise), and its
     moments in their parameters' memory layout: a checkpoint of NCHW image
     nets resumes into channels-last ones with channels-last moments, which
-    the foreach Adam needs for its fused route."""
+    the foreach Adam needs for its fused route. Where the optimizer already
+    holds a count or a moment, the saved one is copied into it: a CUDA graph
+    of a step (train/graph.py) reads those tensors, and stays valid."""
     own = [(g["lr"], g.get("capturable", False)) for g in optimizer.param_groups]
+    held = {p: dict(st) for p, st in optimizer.state.items()}
     optimizer.load_state_dict(sd)
     for group, (lr, capturable) in zip(optimizer.param_groups, own):
         if isinstance(lr, torch.Tensor):
@@ -59,12 +62,21 @@ def load_state_dict(optimizer: torch.optim.Optimizer, sd: dict) -> None:
         group["capturable"] = capturable
         for p in group["params"]:
             st = optimizer.state.get(p, {})
+            old = held.get(p, {})
             if isinstance(st.get("step"), torch.Tensor):
                 where = p.device if capturable else torch.device("cpu")
-                st["step"] = st["step"].to(device=where, dtype=torch.float32)
+                st["step"] = _into(old.get("step"), st["step"].to(device=where, dtype=torch.float32))
             for key, v in list(st.items()):
                 if key != "step" and isinstance(v, torch.Tensor) and v.shape == p.shape:
-                    st[key] = torch.empty_like(p).copy_(v)  # the parameter's strides
+                    st[key] = _into(old.get(key), torch.empty_like(p).copy_(v))  # p's strides
+
+
+def _into(held, value: torch.Tensor) -> torch.Tensor:
+    """``value`` copied into ``held`` where that is a tensor of its kind, else ``value``."""
+    if (isinstance(held, torch.Tensor) and held.shape == value.shape and held.dtype == value.dtype
+            and held.device == value.device and held.stride() == value.stride()):
+        return held.copy_(value)
+    return value
 
 
 def multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float = 0.1):

@@ -37,7 +37,7 @@ import torch
 
 from soft_intro_vae_torch.data.shapenet import ShapeNetDataset, SyntheticClouds, rotate_z
 from soft_intro_vae_torch.metrics.jsd import jsd_between_point_cloud_sets
-from soft_intro_vae_torch.models.pointnet import SoftIntroVAE3D
+from soft_intro_vae_torch.models.pointnet import CONV_CHANNELS, HIDDEN, SoftIntroVAE3D
 from soft_intro_vae_torch.parallel.mesh import current_world, host_local_batch_size, shard_state
 from soft_intro_vae_torch.parallel.multihost import check_world, is_primary, on_primary
 from soft_intro_vae_torch.train import optim
@@ -81,6 +81,10 @@ class ThreeDConfig:
     resume: bool = True
     device: str = "cuda"            # port: where the nets and the data live
     chamfer_impl: str = "auto"      # port: auto | plain | cuda (ops/chamfer.py)
+    # port: the PointNet widths, the JAX modules' conv_channels and hidden
+    # fields (models/pointnet.py), which its trainer leaves at the recipe's
+    conv_channels: Tuple[int, ...] = CONV_CHANNELS
+    hidden: Tuple[int, ...] = HIDDEN
 
     @classmethod
     def from_json(cls, path: str) -> "ThreeDConfig":
@@ -131,7 +135,8 @@ def build_3d_training(cfg: ThreeDConfig, scan_steps: int = 1):
     # the nets are made from the seed without touching the global RNG
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = SoftIntroVAE3D(z_dim=cfg.z_size, n_points=cfg.n_points)
+        model = SoftIntroVAE3D(z_dim=cfg.z_size, n_points=cfg.n_points,
+                               conv_channels=cfg.conv_channels, hidden=cfg.hidden)
     state = TrainState.create(model, device=device, seed=seed + 1, lr_e=cfg.lr_e, lr_d=cfg.lr_d)
     step_cfg = StepConfig(
         z_dim=cfg.z_size,

@@ -48,6 +48,18 @@ In a process group only rank 0 writes (the JAX package's
 utils/checkpoint.py:119 and ``multihost.is_primary``); every rank loads, and
 a checkpoint written under N ranks resumes under M: the state is the same
 on every rank.
+
+Every reader (``load_checkpoint``, ``Checkpointer.load_latest``,
+``load_pretrained``, and through them the trainers' ``resume`` and
+``pretrained``, eval_3d and figures) also takes the JAX package's files:
+flax msgpack of its whole train state (utils/flax_msgpack.py), carried into
+the target state by utils/from_jax.py ``checkpoint_payload_from_jax``. The
+format is told by the file's first bytes, a torch zip archive or a msgpack
+map; a file in neither raises, and so does a JAX tree that does not match
+the target (nothing is loaded then). The names, the pointer file and the
+``.aux.json`` sidecar are the same in both packages, so a JAX run's
+directory resumes as it is. Writing the JAX format is left out: the JAX
+package reads the port's files (its utils/torch_compat.py).
 """
 
 from __future__ import annotations
@@ -63,6 +75,8 @@ import torch
 
 from soft_intro_vae_torch.models.lreq import LreqConv2d, LreqConvTranspose2d, LreqDense
 from soft_intro_vae_torch.parallel.multihost import is_primary
+from soft_intro_vae_torch.utils import flax_msgpack
+from soft_intro_vae_torch.utils.from_jax import checkpoint_payload_from_jax
 
 
 def to_host(tree: Any) -> Any:
@@ -99,8 +113,30 @@ def _write_payload(path: str, payload: dict) -> None:
     os.replace(tmp, path)
 
 
-def _read_payload(path: str) -> dict:
-    return torch.load(path, map_location="cpu", weights_only=True)
+# torch.save's formats: a zip archive, and before torch 1.6 a pickle stream of
+# protocol 2 (PROTO 2 opens it)
+TORCH_MAGIC = (b"PK\x03\x04", b"\x80\x02")
+
+
+def _read_payload(path: str, state: Any) -> dict:
+    """The payload of the file at ``path`` for ``state``: a torch file as
+    ``torch.save`` wrote it, or a JAX package's checkpoint (flax msgpack,
+    whose first byte opens a map) carried into ``state``'s form
+    (utils/from_jax.py ``checkpoint_payload_from_jax``). The format is told
+    by the first bytes; a file in neither raises."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head.startswith(TORCH_MAGIC):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    if not flax_msgpack.is_msgpack_map(head):
+        raise ValueError(f"{path} is neither a torch checkpoint (a zip archive, "
+                         f"{TORCH_MAGIC[0]!r}, or torch's legacy pickle, {TORCH_MAGIC[1]!r}) "
+                         f"nor a JAX package's (flax msgpack, a map: 0x81-0x8f, 0xde, 0xdf); "
+                         f"it starts with {head!r}")
+    try:
+        return checkpoint_payload_from_jax(flax_msgpack.load(path), state)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
 def _restore(payload: dict, target_state: Any) -> Tuple[Any, int, int]:
@@ -118,7 +154,7 @@ def save_checkpoint(path: str, state: Any, *, epoch: int = 0, iteration: int = 0
 def load_checkpoint(path: str, target_state: Any) -> Tuple[Any, int, int]:
     """Restore ``path`` into ``target_state`` in place (``load_state_dict``);
     returns (state, epoch, iteration)."""
-    return _restore(_read_payload(path), target_state)
+    return _restore(_read_payload(path, target_state), target_state)
 
 
 class Checkpointer:
@@ -254,7 +290,7 @@ def load_pretrained(path: str, state: Any) -> int:
     nets load into a style state's ``nets`` and its EMA twins (``*_s``, else
     the online nets) into ``ema``.
     """
-    payload = _read_payload(path)
+    payload = _read_payload(path, state)
     if "opt_e" in payload:
         return _restore(payload, state)[1]
     if "models" in payload:

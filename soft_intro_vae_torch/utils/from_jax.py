@@ -8,14 +8,28 @@ The inverses of ``convert_pointnet_encoder``/``convert_pointnet_decoder``
 and the layout changes of the DCGAN nets and the separable lreq convs
 (soft_intro_vae_tpu/models/lreq.py:96-160). They take the trees as plain numpy arrays (nested dicts), so nothing here
 imports JAX.
+
+``checkpoint_payload_from_jax`` carries a whole JAX checkpoint (a decoded
+``Checkpointer`` file, utils/flax_msgpack.py) into the port's train states:
+the nets through the converters above, the optimizer's moments through the
+same layout maps as the weights they belong to, the counts, LRs, EMA nets
+and the step. A JAX PRNG key has no torch generator state: the port's
+generator is seeded from the key's words (``seed_from_jax_key``), so after a
+carry the draws are the port's own.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from soft_intro_vae_torch.models.conv import ResidualBlock, SoftIntroVAE
+from soft_intro_vae_torch.models.mlp import SoftIntroVAESimple
+from soft_intro_vae_torch.models.pointnet import SoftIntroVAE3D
+from soft_intro_vae_torch.train.state import TrainState
+from soft_intro_vae_torch.train.style_step import StyleTrainState
 
 
 def _t(x) -> torch.Tensor:
@@ -293,3 +307,169 @@ def separable_state_dict_from_jax(params: Mapping, prefix: str = "") -> Dict[str
     sd[prefix + "depthwise.weight"] = _conv_oihw(params["depthwise_kernel"])
     _lreq_conv(sd, prefix + "pointwise", params["pointwise"])
     return sd
+
+
+class _Tree(dict):
+    """A decoded JAX tree that names the path of a leaf it lacks."""
+
+    def __init__(self, tree: Mapping, path: str):
+        super().__init__({k: _tree(v, f"{path}/{k}") for k, v in tree.items()})
+        self.path = path
+
+    def __missing__(self, key):
+        raise KeyError(f"{self.path}/{key}")
+
+
+def _tree(x, path: str):
+    if isinstance(x, Mapping):
+        return _Tree(x, path)
+    if isinstance(x, torch.Tensor):  # a bfloat16 leaf (flax_msgpack)
+        return x.float().numpy()
+    return x
+
+
+def _match(got: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor], what: str) -> None:
+    """``got`` (carried from the file) has ``want``'s entries and shapes."""
+    for k, w in want.items():
+        if k not in got:
+            raise ValueError(f"{what}: the JAX checkpoint has nothing for {k} "
+                             f"{tuple(w.shape)} of the target")
+        if tuple(got[k].shape) != tuple(w.shape):
+            raise ValueError(f"{what}: {k} is {tuple(got[k].shape)} in the JAX checkpoint, "
+                             f"{tuple(w.shape)} in the target")
+    extra = [k for k in got if k not in want]
+    if extra:
+        raise ValueError(f"{what}: the JAX checkpoint has {extra[0]} "
+                         f"{tuple(got[extra[0]].shape)}, which the target lacks")
+
+
+def seed_from_jax_key(key) -> int:
+    """The port's generator seed for a JAX PRNG key's raw uint32 words: the
+    words read as one big-endian integer, modulo 2**64 (a threefry key
+    (w0, w1) gives w0 * 2**32 + w1). A fixed rule, so a carried run is
+    reproducible; the draws after the carry are the port's own."""
+    seed = 0
+    for w in np.asarray(key, dtype=np.uint32).reshape(-1):
+        seed = ((seed << 32) | int(w)) % 2**64
+    return seed
+
+
+def _generator_state(key, device: torch.device) -> torch.Tensor:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed_from_jax_key(key))
+    return gen.get_state()
+
+
+def _image_layout(model: SoftIntroVAE):
+    """(channels, image_size) of the port's image nets."""
+    enc = model.encoder
+    blocks = [m for m in enc.main if isinstance(m, ResidualBlock)]
+    channels = (enc.main[0].out_channels,) + tuple(b.conv2.out_channels for b in blocks[:-1])
+    return channels, enc.conv_output_spatial * 2 ** len(channels)
+
+
+def _generic_state_dict(model, params_e, stats_e, params_d, stats_d, params_t=None,
+                        stats_t=None) -> Dict[str, torch.Tensor]:
+    """The JAX trees of the generic step's nets -> ``model``'s state_dict, by
+    the converter of its kind (3D, image and bootstrap, toy)."""
+    if isinstance(model, SoftIntroVAE3D):
+        return pointnet_state_dict_from_jax(params_e, stats_e, params_d)
+    if isinstance(model, SoftIntroVAE):
+        channels, size = _image_layout(model)
+        return image_state_dict_from_jax(params_e, stats_e, params_d, stats_d, channels, size,
+                                         params_t, stats_t)
+    if isinstance(model, SoftIntroVAESimple):
+        n_layers = sum(1 for k in params_e if k.startswith("hidden_"))
+        return {**mlp_state_dict_from_jax(params_e, n_layers, "encoder."),
+                **mlp_state_dict_from_jax(params_d, n_layers, "decoder.")}
+    raise TypeError(f"no JAX counterpart for a {type(model).__name__} model")
+
+
+def _adam_state_dict(opt: torch.optim.Optimizer, names: Sequence[str], mu, nu, count,
+                     lr) -> dict:
+    """optax ``ScaleByAdamState(count, mu, nu)`` -> torch Adam's state_dict
+    for ``opt``, whose parameters are ``names`` in order: ``step`` the count,
+    ``exp_avg`` mu and ``exp_avg_sq`` nu (optax's count is the number of
+    updates made, as torch's step is); the param group is ``opt``'s own."""
+    (group,) = opt.state_dict()["param_groups"]
+    step = torch.tensor(float(count), dtype=torch.float32)
+    state = {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+             for i, n in enumerate(names)}
+    return {"state": state, "param_groups": [{**group, "lr": float(lr)}]}
+
+
+def train_state_payload_from_jax(tree: Mapping, state: TrainState) -> dict:
+    """A JAX ``TrainState`` tree (soft_intro_vae_tpu/train/state.py:19-35)
+    -> the payload of the port's ``TrainState.load_state_dict`` for
+    ``state`` (3D, image, bootstrap and toy nets). The moments are converted
+    as the weights are (OIHW, the image fc's HWC -> CHW order) and land in
+    their parameters' memory layout when loaded (train/optim.py)."""
+    t = _Tree(tree, "state")
+    model = state.model
+    sd = _generic_state_dict(model, t["params_e"], t["stats_e"], t["params_d"], t["stats_d"],
+                             t["params_d_target"] or None, t["stats_d_target"] or None)
+    _match(sd, model.state_dict(), "model")
+    params = {k: p for k, p in model.named_parameters() if not k.startswith("target_decoder.")}
+    moments = {}
+    for which in ("mu", "nu"):
+        m = _generic_state_dict(model, t["opt_e"][which], t["stats_e"], t["opt_d"][which],
+                                t["stats_d"])
+        _match({k: v for k, v in m.items() if k in params}, params, f"opt {which}")
+        moments[which] = m
+    out = {"model": sd, "step": int(t["step"]), "lr_e": float(t["lr_e"]),
+           "lr_d": float(t["lr_d"]), "rng": _generator_state(t["rng"], state.device)}
+    for opt, net, lr in (("opt_e", "encoder", "lr_e"), ("opt_d", "decoder", "lr_d")):
+        names = [f"{net}.{n}" for n, _ in getattr(model, net).named_parameters()]
+        out[opt] = _adam_state_dict(getattr(state, opt), names, moments["mu"], moments["nu"],
+                                    t[opt]["count"], t[lr])
+    return out
+
+
+def style_state_payload_from_jax(tree: Mapping, state: StyleTrainState) -> dict:
+    """A JAX ``StyleTrainState`` tree (soft_intro_vae_tpu/train/style_step.py:
+    172-184) -> the payload of the port's ``StyleTrainState.load_state_dict``:
+    the nets and their EMA twins, ``LreqAdamState(count, nu)``
+    (soft_intro_vae_tpu/train/lreq_adam.py:25-27) as each LREQAdam's count
+    and v in its parameters' order, the LR, the EMA beta and the step."""
+    t = _Tree(tree, "state")
+    nets = style_state_dict_from_jax(t["params_e"], t["params_d"], t["buffers"])
+    _match(nets, state.nets.state_dict(), "nets")
+    ema = style_state_dict_from_jax(t["ema_e"], t["ema_d"], t["ema_buffers"])
+    _match(ema, state.ema.state_dict(), "ema")
+    nu = style_state_dict_from_jax(t["opt_e"]["nu"], t["opt_d"]["nu"], t["buffers"])
+    params = dict(state.nets.named_parameters())
+    _match({k: v for k, v in nu.items() if k in params}, params, "opt nu")
+    lr = torch.tensor(float(t["lr"]), dtype=torch.float32)
+    out = {"nets": nets, "ema": ema, "step": int(t["step"]), "lr": lr,
+           "ema_beta": torch.tensor(float(t["ema_beta"]), dtype=torch.float32),
+           "rng": _generator_state(t["rng"], state.device)}
+    for opt, subnets in (("opt_e", ("encoder", "mapping_tl")), ("opt_d", ("decoder", "mapping_fl"))):
+        names = [f"{s}.{n}" for s in subnets for n, _ in getattr(state.nets, s).named_parameters()]
+        out[opt] = {"count": torch.tensor(int(t[opt]["count"]), dtype=torch.int32),
+                    "nu": [nu[n] for n in names], "lr": lr.clone()}
+    return out
+
+
+def checkpoint_payload_from_jax(tree: Mapping, state) -> dict:
+    """A decoded JAX checkpoint file ({"epoch", "iteration", "extra",
+    "state"}, soft_intro_vae_tpu/utils/checkpoint.py:59-84) -> the port's
+    payload for ``state``: the state's entries, ``epoch``, ``iteration`` and
+    ``extra``. A tree that does not match ``state``'s nets raises, naming the
+    first leaf that differs; nothing is loaded in part."""
+    keys = {"epoch", "iteration", "extra", "state"}
+    if not isinstance(tree, Mapping) or set(tree) != keys:
+        raise ValueError(f"a JAX checkpoint holds {sorted(keys)}; this one holds "
+                         f"{sorted(tree) if isinstance(tree, Mapping) else type(tree).__name__}")
+    try:
+        if isinstance(state, StyleTrainState):
+            entries = style_state_payload_from_jax(tree["state"], state)
+        elif isinstance(state, TrainState):
+            entries = train_state_payload_from_jax(tree["state"], state)
+        else:
+            raise TypeError(f"a JAX checkpoint loads into a TrainState or a StyleTrainState, "
+                            f"not a {type(state).__name__}")
+    except KeyError as e:
+        raise ValueError(f"the JAX checkpoint has no {e.args[0]}, which the target's "
+                         f"config needs") from None
+    return {**entries, "epoch": int(tree["epoch"]), "iteration": int(tree["iteration"]),
+            "extra": dict(tree["extra"])}
