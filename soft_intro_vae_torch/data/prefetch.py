@@ -11,11 +11,18 @@ waits on that event before the step reads the batch. uint8 batches ship as
 uint8, one byte a pixel; the step normalizes them (ops/u8norm.py), or the
 put does on its side stream (the style feed, train/style.py). On the CPU
 the put is a plain copy.
+
+Spans (utils/profiling.py): the worker records each batch's production
+(``feed.produce``) and put (``feed.put``, and inside it ``feed.slot_wait``,
+a wait for a pinned buffer still being copied out of, and ``feed.launch``,
+the put's CUDA calls), the consumer each hand-off from the queue
+(``feed.wait``).
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, List, Optional
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from soft_intro_vae_torch.utils.device import resolve_device
+from soft_intro_vae_torch.utils.profiling import span
 
 
 class Transfer:
@@ -86,7 +94,8 @@ class HostRings:
                               pin_memory=self.pin)
             ring.append([buf, None])
         if ring[i][1] is not None:
-            ring[i][1].synchronize()  # the previous copy out of this buffer has ended
+            with span("feed.slot_wait"):  # the previous copy out of this buffer has ended
+                ring[i][1].synchronize()
         return ring[i]
 
 
@@ -109,7 +118,7 @@ class _PinnedPut:
         slot = self.rings.slot(batch.shape, batch.dtype)
         buf = slot[0]
         np.copyto(buf.numpy(), batch)
-        with torch.cuda.stream(self.stream):
+        with span("feed.launch"), torch.cuda.stream(self.stream):
             out = torch.empty(buf.shape, dtype=buf.dtype, device=self.device)
             out.copy_(buf, non_blocking=True)
             if then is not None:
@@ -168,10 +177,15 @@ def device_prefetch(batches: Iterable, size: int = 2,
 
     def worker():
         try:
-            for b in batches:
-                if stop.is_set():
+            it = iter(batches)
+            for i in itertools.count():
+                with span("feed.produce", i):
+                    b = next(it, sentinel)
+                if b is sentinel or stop.is_set():
                     break
-                q.put(put_fn(b))
+                with span("feed.put", i):
+                    item = put_fn(b)
+                q.put(item)
         except BaseException as e:  # propagate to the consumer
             err.append(e)
         finally:
@@ -180,13 +194,16 @@ def device_prefetch(batches: Iterable, size: int = 2,
     t = threading.Thread(target=worker, name="device_prefetch", daemon=True)
     t.start()
     try:
-        while True:
-            item = q.get()
+        for i in itertools.count():
+            with span("feed.wait", i):
+                item = q.get()
+                if item is not sentinel:
+                    item = _ready(item)
             if item is sentinel:
                 if err:
                     raise err[0]
                 return
-            yield _ready(item)
+            yield item
     finally:
         stop.set()
         while t.is_alive():  # a worker blocked on the full queue takes its put back

@@ -15,6 +15,9 @@ or load failure raises; there is no fallback to a plain version.
 
 ``build_host_library`` builds a C++ source for the host the same way, with
 ``g++`` (the native TFRecord reader, ``native/tfrecord_reader.cpp``).
+
+A compile is a ``kernels.build`` span (utils/profiling.py), so the time a
+first call spends building can be told from the call's own.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import shutil
 import subprocess
 import threading
 from typing import Callable, Optional, Sequence, Tuple
+
+from soft_intro_vae_torch.utils.profiling import span
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,10 +72,16 @@ def _command(spec: Spec, out: str) -> list:
 def _build_all(builds: Sequence[Tuple[Callable[[str], list], str]]) -> None:
     """Run ``command(tmp)`` for every ``(command, out)`` whose ``out`` is not
     built yet, all at once; rename each finished library into place."""
+    todo = [(command, out) for command, out in builds if not os.path.exists(out)]
+    if todo:
+        with span("kernels.build"):
+            _compile(todo)
+
+
+def _compile(builds: Sequence[Tuple[Callable[[str], list], str]]) -> None:
+    """Start every build at once, wait for all, move each into place."""
     jobs = []
     for command, out in builds:
-        if os.path.exists(out):
-            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = command(tmp)

@@ -63,6 +63,10 @@ and are captured with the rest of the step, so a replay runs them too. gloo
 cannot be captured: under gloo a K-step call runs K eager steps, and a
 ``one_step`` call one eager step, as on the CPU, and each says so once.
 
+Spans (utils/profiling.py): each eager warm-up step is a ``graph.warmup``,
+each capture a ``graph.capture``, and each replay, from the static input's
+copy to the metrics row's, a ``graph.replay``.
+
 A graph and its private memory pool live as long as its ``GraphedStep``:
 the style trainer drops a LOD's steps when ``LODDriver`` moves on, and the
 image, 3D and toy trainers drop the vanilla step at the switch to the
@@ -82,6 +86,7 @@ from soft_intro_vae_torch.models import remat
 from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, u8norm_cuda
 from soft_intro_vae_torch.parallel import collectives
 from soft_intro_vae_torch.parallel.mesh import current_world
+from soft_intro_vae_torch.utils.profiling import span
 
 WARMUP_STEPS = 3
 
@@ -173,24 +178,27 @@ class GraphedStep:
 
         done = []
         while key not in self.graphs and len(done) < k and self.warmed[key] < WARMUP_STEPS:
-            done.append(self._warm_up(state, key, xs[len(done)], *inputs(len(done)), cur))
+            with span("graph.warmup"):
+                done.append(self._warm_up(state, key, xs[len(done)], *inputs(len(done)), cur))
         names = self.names[key]
         out = torch.empty((len(names), k), dtype=torch.float32, device=xs.device)
         for i, row in enumerate(done):
             out[:, i].copy_(row)
         if len(done) < k and key not in self.graphs:
             i = len(done)
-            self.graphs[key] = self._capture(state, key, xs[i], *inputs(i), names)
+            with span("graph.capture"):
+                self.graphs[key] = self._capture(state, key, xs[i], *inputs(i), names)
         for i in range(len(done), k):
-            g = self.graphs[key]
-            g.x.copy_(xs[i])
-            for slot, s in zip(g.slots, scalars):
-                _write(slot, s[i])
-            for n, slot in g.draws.items():
-                slot.copy_(draws[n][i])
-            _restart_from(state.generator, g.restarts, g.offsets)
-            g.graph.replay()
-            out[:, i].copy_(g.row)
+            with span("graph.replay"):
+                g = self.graphs[key]
+                g.x.copy_(xs[i])
+                for slot, s in zip(g.slots, scalars):
+                    _write(slot, s[i])
+                for n, slot in g.draws.items():
+                    slot.copy_(draws[n][i])
+                _restart_from(state.generator, g.restarts, g.offsets)
+                g.graph.replay()
+                out[:, i].copy_(g.row)
             replayed.update(g.per_replay)
         state.step += k - len(done)  # the warm-up steps advanced it themselves
         return state, dict(zip(names, out))
