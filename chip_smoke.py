@@ -15,7 +15,9 @@ Phases, each printing one line; any failure exits non-zero:
               launch (bit-equal, also on tie-heavy clouds), and the fused
               bias/leaky-ReLU/instance-norm/AdaIN forward and backward in
               every mode, f32 and bf16, at every LOD-6 site shape (each with
-              its launch plan; two launches bit-equal);
+              its launch plan; two launches bit-equal); the blur forward and
+              backward against F.conv2d's at every LOD-6 b32 plane, f32 and
+              bf16, bit-equal, timed at the two largest planes;
   4. train 3d: ``train_soft_intro_vae_3d`` at the full width of
               configs/soft_intro_vae_hp.json (2048 points, batch 32, z 128) on
               synthetic clouds for one intro epoch plus the valid JSD, each
@@ -40,9 +42,11 @@ Phases, each printing one line; any failure exits non-zero:
               CUDA graph after 3 eager warm-up steps and its capture; every
               kernel's launch count on the device read around it and held to
               the count the steps imply, and the launches each capture
-              recorded to one step's;
+              recorded to one step's (the blur's: 83 forward + 77 backward an
+              intro step);
   6. step style: ms per LOD-6 eager intro step after warm-up; the first warm-up
-              step records its fused-norm launches by site, and each site is
+              step records its fused-norm and blur launches by site, and each
+              fused-norm site is
               then timed alone in bf16 and f32: per-step kernel ms against the
               per-step bound;
   7. routes style: one f32 intro step through the kernels against one
@@ -442,16 +446,17 @@ def phase_kernels(device, peak_name, peaks):  # the chamfer kernel
 def phase_build() -> str:
     """nvcc builds every kernel library of the checkout, one process per source,
     all started together."""
-    from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, cuda_build, u8norm_cuda
+    from soft_intro_vae_torch.ops import (
+        adain_cuda, blur_cuda, chamfer_cuda, cuda_build, u8norm_cuda)
 
     t0 = time.perf_counter()
-    libs = (chamfer_cuda, adain_cuda, u8norm_cuda)
+    libs = (chamfer_cuda, adain_cuda, blur_cuda, u8norm_cuda)
     paths = cuda_build.build_many([lib.spec() for lib in libs])
     for lib in libs:
         lib.load()
     parts = [f"{os.path.basename(lib.spec()[0])}: {cuda_build.ptxas_summary(path)}"
              for lib, path in zip(libs, paths)]
-    return (f"build: chamfer_nearest.cu, bias_act_norm.cu and u8norm.cu in "
+    return (f"build: chamfer_nearest.cu, bias_act_norm.cu, blur3x3.cu and u8norm.cu in "
             f"{time.perf_counter() - t0:.2f} s (in parallel); " + " || ".join(parts))
 
 
@@ -686,13 +691,162 @@ def norm_line(worst, times, peaks) -> str:
             + f" (bound by bytes at {peaks[1] / 1e12:.2f} TB/s)")
 
 
+# the blur's planes (C, side) in the ffhq256 LOD-6 step, largest first;
+# phase_blur runs them at batch 32 (the benchmark's b32 cell), the style
+# phases hold the step's blur sites to them at the smoke's batch
+BLUR_PLANES = ((64, 256), (128, 128), (256, 64), (512, 32), (512, 16), (512, 8), (512, 4))
+BLUR_BATCH = 32
+BLUR_TIMED = 2                     # the planes timed: the two that hold 75% of the bytes
+# odd shapes (one element a thread, strips of odd rows, whole planes of odd
+# sides) and a contiguous view that starts 2 or 4 bytes past 16 (scalar staging)
+BLUR_ODD = ((3, 5, 7, 9), (2, 3, 1, 6), (2, 3, 33, 65), (1, 2, 300, 1), (2, 2, 129, 127))
+
+
+def style_blur_launches(lod: int, vanilla: int, intro: int, remat: bool = False):
+    """(forward, backward) blur launches of these steps at this LOD: an
+    encoder pass blurs in each of its lod + 1 blocks, a generator pass in
+    each of its lod blocks after the first; the passes as in
+    ``style_step_launches`` (an intro step: 5 encoder and 8 generator passes,
+    all with a backward but the E phase's fake generation; 83 and 77 at LOD
+    6); ``remat`` recomputes every forward that has a backward."""
+    enc, dec = lod + 1, lod
+    fwd = enc * (vanilla + 5 * intro) + dec * (vanilla + 8 * intro)
+    bwd = enc * (vanilla + 5 * intro) + dec * (vanilla + 7 * intro)
+    return fwd + (bwd if remat else 0), bwd
+
+
+def _blur_pair(x, dy, route):
+    """(y, dx) of the blur of x by ``route`` (``models/style.py blur3x3``'s impl),
+    dx through autograd: F.conv2d's own backward on the plain route."""
+    import torch
+
+    from soft_intro_vae_torch.models.style import blur3x3
+
+    xg = x.detach().requires_grad_(True)
+    y = blur3x3(xg, route)
+    (dx,) = torch.autograd.grad(y, xg, dy)
+    return y.detach(), dx
+
+
+def phase_blur(device, peaks):
+    """The blur kernel (forward; backward = the kernel on dy, ``flip``) against
+    F.conv2d's forward and its own input gradient (ATen's depthwise kernels)
+    at every LOD-6 b32 plane in f32 and bf16 and at BLUR_ODD, bit for bit, and
+    launch to launch; each order of the nine terms against the other
+    direction's ATen result, counted; device times at the two largest planes
+    in bf16 against the bound (one read and one write an element), the plain
+    route (blur3x3_plain on x, and on dy: the Function's plain backward) and
+    F.conv2d's own backward (``library_ms``)."""
+    import torch
+
+    from soft_intro_vae_torch.ops import blur, blur_cuda, cuda_build
+    from tools.torch_norm_sites import device_ms
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(24)
+    shapes = [(BLUR_BATCH, c, s, s) for c, s in BLUR_PLANES] + list(BLUR_ODD)
+    crossed, plans = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            n = math.prod(shape)
+            # a contiguous view off a 16-byte boundary for the odd shapes
+            off = 1 if shape in BLUR_ODD else 0
+            x = torch.randn(n + off, generator=gen, device=device).to(dtype)[off:].view(shape)
+            dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+            y, dx = _blur_pair(x, dy, "cuda")
+            y_ref, dx_ref = _blur_pair(x, dy, "plain")
+            y2 = blur_cuda.blur3x3_cuda(x)
+            y_flip = blur_cuda.blur3x3_cuda(x, flip=True)
+            torch.cuda.synchronize()
+            name = f"{tuple(shape)} {str(dtype).split('.')[-1]}"
+            check(torch.equal(y, y_ref), f"blur forward {name}: {int((y != y_ref).sum())} of {n} "
+                  f"elements differ from F.conv2d (max |diff| "
+                  f"{float((y.float() - y_ref.float()).abs().max()):.3g})")
+            check(torch.equal(dx, dx_ref), f"blur backward {name}: {int((dx != dx_ref).sum())} of "
+                  f"{n} elements differ from F.conv2d's input gradient (max |diff| "
+                  f"{float((dx.float() - dx_ref.float()).abs().max()):.3g})")
+            check(torch.equal(y, y2), f"blur {name}: two launches differ")
+            crossed[name] = int((y_flip != y_ref).sum())
+            if shape in BLUR_ODD or shape[1:] == (64, 256, 256):
+                p = blur_cuda.plan(shape[0] * shape[1], shape[2], shape[3], dtype)
+                plans.append(f"{name}: vec {p.vec}, rows {p.rows} x {p.strips} strips, "
+                             f"{p.planes} planes a CTA, {p.walkers} walkers x {p.runs} runs of "
+                             f"{p.run_rows}, {p.threads} threads, {p.smem} B, grid {p.grid}")
+            del x, dy, y, dx, y_ref, dx_ref, y2, y_flip
+    torch.cuda.empty_cache()
+
+    times = {}
+    plain, kernel = ("plain_fwd", "plain_bwd", "library_bwd"), ("fwd", "bwd")
+    for c, side in BLUR_PLANES[:BLUR_TIMED]:
+        shape = (BLUR_BATCH, c, side, side)
+        x = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        xg = x.clone().requires_grad_(True)
+        y_lib = blur.blur3x3_plain(xg)
+        calls = {"plain_fwd": lambda: blur.blur3x3_plain(x),
+                 "plain_bwd": lambda: blur.blur3x3_plain(dy),
+                 "library_bwd": lambda: torch.autograd.grad(y_lib, xg, dy, retain_graph=True),
+                 "fwd": lambda: blur_cuda.blur3x3_cuda(x),
+                 "bwd": lambda: blur_cuda.blur3x3_cuda(dy, flip=True)}
+        t = {k: [] for k in calls}
+        for turn in (plain, kernel, kernel, plain):
+            for k in turn:
+                t[k].append(device_ms(calls[k]))
+        times[shape] = {k: sum(v) / len(v) for k, v in t.items()} | {
+            "runs": t, "bound": 2 * x.numel() * x.element_size() / peaks[1] * 1e3}
+        del x, dy, xg, y_lib, calls
+    torch.cuda.empty_cache()
+    path = cuda_build.library_path(*blur_cuda.spec())
+    top_shape = (BLUR_BATCH, BLUR_PLANES[0][0], BLUR_PLANES[0][1], BLUR_PLANES[0][1])
+    top = times[top_shape]
+    record = {
+        "name": "blur3x3",
+        "route": "cuda",
+        "source": "soft_intro_vae_torch/ops/csrc/blur3x3.cu",
+        "replaces": "no TPU kernel: XLA's grouped conv, soft_intro_vae_tpu/models/style.py:55",
+        "launches": None,  # filled from the style train phase
+        "max_abs_err": 0.0,
+        "ms": top["fwd"],
+        "bwd_ms": top["bwd"],
+        "plain_ms": top["plain_fwd"],
+        "plain_bwd_ms": top["plain_bwd"],
+        "bound_ms": top["bound"],
+        "bound_by": "bytes",
+        "library_ms": top["plain_fwd"],  # the plain route is F.conv2d's forward
+        "library_bwd_ms": top["library_bwd"],
+        "shape": list(top_shape),
+        "dtype": "bfloat16",
+        "by_shape": {str(k): {n: v for n, v in t.items() if n != "runs"}
+                     for k, t in times.items()},
+    }
+    parts = []
+    for shape, t in times.items():
+        r = {k: "/".join(f"{v:.4f}" for v in vs) for k, vs in t["runs"].items()}
+        parts.append(
+            f"{shape} bf16: forward {r['fwd']} ms, backward {r['bwd']} ms, bound "
+            f"{t['bound']:.4f} ms (forward at {t['bound'] / t['fwd']:.1%}, backward at "
+            f"{t['bound'] / t['bwd']:.1%}); plain route (F.conv2d) on x {r['plain_fwd']} ms, on "
+            f"dy {r['plain_bwd']} ms; library_ms: F.conv2d's forward {t['plain_fwd']:.4f}, its "
+            f"own backward {r['library_bwd']} ms")
+    print(f"kernels: blur3x3 forward and backward bit-equal to F.conv2d's forward and input "
+          f"gradient at every LOD-6 b32 plane and {len(BLUR_ODD)} odd shapes (views 2 or 4 "
+          f"bytes off 16), f32 and bf16, and launch to launch; the backward's order of the nine "
+          f"terms on x against F.conv2d's forward, elements that differ: "
+          + (", ".join(f"{k} {v}" for k, v in crossed.items() if v) or "none")
+          + "; plans: " + "; ".join(plans) + "; device times (calls queued behind a sleep "
+          f"kernel, plain and kernel in turns; bound: one read and one write an element at "
+          f"{peaks[1] / 1e12:.2f} TB/s): " + "; ".join(parts)
+          + f"; ptxas: {cuda_build.ptxas_summary(path)}", flush=True)
+    return record
+
+
 def reset_counts() -> None:
-    from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, u8norm_cuda
+    from soft_intro_vae_torch.ops import adain_cuda, blur_cuda, chamfer_cuda, u8norm_cuda
     from soft_intro_vae_torch.train import graph
 
     from soft_intro_vae_torch.parallel import collectives
 
-    chamfer_cuda.launches = u8norm_cuda.launches = 0
+    chamfer_cuda.launches = u8norm_cuda.launches = blur_cuda.launches = 0
     adain_cuda.launches_fwd = adain_cuda.launches_bwd = 0
     collectives.calls.clear()
     graph.captured.clear()
@@ -1211,10 +1365,15 @@ def phase_style_train(device, card: str, results_dir: str):
           f"fused-norm launches {counts}, expected forward {want_fwd}, backward {want_bwd}")
     check(counts["chamfer_nearest"] == counts["u8norm"] == 0,
           f"the style path launched chamfer or u8norm: {counts}")
+    want_blur = sum(style_blur_launches(cfg.layer_count - 1, steps, steps))
+    check(counts["blur3x3"] == want_blur,
+          f"blur launches {counts['blur3x3']} on the device, expected {want_blur}")
     per_graph = [style_step_launches(cfg.layer_count - 1, v, 1 - v) for v in (1, 0)]
+    blur_per_graph = [sum(style_blur_launches(cfg.layer_count - 1, v, 1 - v)) for v in (1, 0)]
     check((captured.get("bias_act_norm_fwd"), captured.get("bias_act_norm_bwd"))
-          == tuple(map(sum, zip(*per_graph))),
-          f"the vanilla and intro graphs recorded {captured}, expected {per_graph}")
+          == tuple(map(sum, zip(*per_graph))) and captured.get("blur3x3") == sum(blur_per_graph),
+          f"the vanilla and intro graphs recorded {captured}, expected {per_graph} fused-norm "
+          f"and {blur_per_graph} blur launches")
     check(summary["epochs_run"] == 2 and summary["steps"] == 2 * steps and state.step == 2 * steps,
           f"style run: {summary['epochs_run']} epochs, {summary['steps']} steps")
     last = summary["last_metrics"]
@@ -1230,7 +1389,9 @@ def phase_style_train(device, card: str, results_dir: str):
           f"launches on the device fwd {counts['bias_act_norm_fwd']} / bwd "
           f"{counts['bias_act_norm_bwd']} (expected {want_fwd} / {want_bwd}; each epoch 3 eager "
           f"warm-up steps, a graph capture recording {per_graph[0]} vanilla and {per_graph[1]} "
-          f"intro launches, replays); peak device memory {peak_gb:.2f} GB; on {card}",
+          f"intro launches, replays); blur3x3 launches on the device {counts['blur3x3']} "
+          f"(expected {want_blur}; captures {blur_per_graph}); peak device memory "
+          f"{peak_gb:.2f} GB; on {card}",
           flush=True)
     return cfg, counts
 
@@ -1375,6 +1536,24 @@ def recording_norm_launches(mix):
         adain_cuda.forward, adain_cuda.backward = fwd, bwd
 
 
+@contextlib.contextmanager
+def recording_blur_launches(mix):
+    """Counts every blur kernel call by (direction, shape)."""
+    from soft_intro_vae_torch.ops import blur_cuda
+
+    call = blur_cuda.blur3x3_cuda
+
+    def rec(x, flip=False):
+        mix[("bwd" if flip else "fwd", tuple(x.shape))] += 1
+        return call(x, flip)
+
+    blur_cuda.blur3x3_cuda = rec
+    try:
+        yield mix
+    finally:
+        blur_cuda.blur3x3_cuda = call
+
+
 def phase_style_step(device, card: str, cfg):
     """ms per LOD-6 intro step after warm-up: median of three 10-step windows.
     The first warm-up step records the step's fused-norm launches by site."""
@@ -1384,13 +1563,21 @@ def phase_style_step(device, card: str, cfg):
 
     state, intro = _style_intro(cfg)
     batches = _style_batches(cfg, device, 4)
-    with recording_norm_launches(collections.Counter()) as mix:
+    with recording_norm_launches(collections.Counter()) as mix, \
+            recording_blur_launches(collections.Counter()) as blurs:
         state, m = intro(state, batches[0])
     want = style_step_launches(cfg.layer_count - 1, 0, 1)
     got = tuple(sum(v for k, v in mix.items() if k[0] == d) for d in ("fwd", "bwd"))
     check(got == want, f"one intro step launched {got} fused-norm kernels, expected {want}")
     sites = sorted({k[1] for k in mix}, key=lambda s: -s[2])
     check(sites == list(SITE_SHAPES), f"the step's norm sites {sites} are not {SITE_SHAPES}")
+    want_blur = style_blur_launches(cfg.layer_count - 1, 0, 1)
+    got_blur = tuple(sum(v for k, v in blurs.items() if k[0] == d) for d in ("fwd", "bwd"))
+    batch = batches[0].shape[0]
+    blur_sites = sorted({k[1] for k in blurs}, key=lambda s: -s[2])
+    check(got_blur == want_blur and blur_sites == [(batch, c, s, s) for c, s in BLUR_PLANES],
+          f"one intro step launched {got_blur} blur kernels at {blur_sites}, expected "
+          f"{want_blur} at {BLUR_PLANES}")
     for i in range(1, 3):
         state, m = intro(state, batches[i % 4])
     windows = []
@@ -1403,11 +1590,11 @@ def phase_style_step(device, card: str, cfg):
         windows.append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
     check(all(math.isfinite(float(v)) for v in m.values()), "non-finite loss in the timed steps")
     ms_step = sorted(windows)[len(windows) // 2]
-    batch = batches[0].shape[0]
     print(f"step style: LOD-6 intro step at ffhq256 width, batch {batch}, bf16: "
           f"{ms_step:.3f} ms/step after warm-up (median of "
-          f"{'/'.join(f'{w:.3f}' for w in windows)}), {batch * 1e3 / ms_step:.2f} images/s "
-          f"on {card}", flush=True)
+          f"{'/'.join(f'{w:.3f}' for w in windows)}), {batch * 1e3 / ms_step:.2f} images/s; "
+          f"blur launches a step forward {got_blur[0]}, backward {got_blur[1]} on {card}",
+          flush=True)
     del state, intro, batches
     torch.cuda.empty_cache()
     return ms_step, mix
@@ -3012,6 +3199,9 @@ def phase_remat_style(device, card: str, results_dir: str):
     want = style_step_launches(lod, steps, steps, remat=True)
     check((counts["bias_act_norm_fwd"], counts["bias_act_norm_bwd"]) == want,
           f"remat fused-norm launches {counts}, expected forward/backward {want}")
+    want_blur = sum(style_blur_launches(lod, steps, steps, remat=True))
+    check(counts["blur3x3"] == want_blur,
+          f"remat blur launches {counts['blur3x3']}, expected {want_blur}")
     last = summary["last_metrics"]
     check(summary["steps"] == 2 * steps and all(math.isfinite(v) for v in last.values()),
           f"remat style run: {summary['steps']} steps, metrics {last}")
@@ -3084,11 +3274,17 @@ def phase_graph_style(device, card: str):
         want = style_step_launches(lod, 0, n, remat=c.remat)
         got = (counts["bias_act_norm_fwd"], counts["bias_act_norm_bwd"])
         rec = (captured.get("bias_act_norm_fwd"), captured.get("bias_act_norm_bwd"))
-        check(got == want and rec == per_step,
+        blur_step = sum(style_blur_launches(lod, 0, 1, remat=c.remat))
+        blur_got, blur_rec = counts["blur3x3"], captured.get("blur3x3")
+        check(got == want and rec == per_step and blur_got == n * blur_step
+              and blur_rec == blur_step,
               f"graph style {name}: fused-norm launches on the device {got} (expected {want}), "
-              f"recorded in the capture {rec} (expected {per_step})")
+              f"recorded in the capture {rec} (expected {per_step}); blur launches on the "
+              f"device {blur_got} (expected {n * blur_step}), recorded {blur_rec} (expected "
+              f"{blur_step})")
         parts.append(f"{name}: all {compared} tensors bit-equal, fused-norm launches captured "
-                     f"{rec[0]} / {rec[1]}, on the device {got[0]} / {got[1]}")
+                     f"{rec[0]} / {rec[1]}, on the device {got[0]} / {got[1]}; blur launches "
+                     f"captured {blur_rec}, on the device {blur_got}")
 
     def cell(remat, route):
         ms, ws, gib, base, (busy, ops) = timed[remat][route]
@@ -3715,7 +3911,8 @@ def main() -> int:
     chamfer = phase_kernels(device, peak_name, peaks)
     worst, times = phase_norm_kernels(device)
     print(norm_line(worst, times, peaks), flush=True)
-    lap("kernels chamfer and fused norm")
+    blur_record = phase_blur(device, peaks)
+    lap("kernels chamfer, fused norm and blur")
     # the trainers' checkpoints (~100 MB for 3D, ~0.65 GB for style) go to
     # directories removed afterwards
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
@@ -3777,8 +3974,9 @@ def main() -> int:
     records = [chamfer] + norm_records(worst, times, peaks, totals)
     for rec in records[1:]:
         rec["launches"] = counts_style[rec["name"]]
+    blur_record["launches"] = counts_style["blur3x3"]
     u8["launches"] = counts_image["u8norm"]
-    records.append(u8)
+    records += [blur_record, u8]
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,10 +13,11 @@ EncoderWithFC, the same with an ``fc2`` head (JAX models/style.py:161-168,
 ``convert_style_encoder``/``convert_style_generator``/``convert_mapping``
 (soft_intro_vae_tpu/utils/torch_compat.py:264-321) read them.
 
-Layout NCHW. Every norm site goes through ``ops/adain.bias_act_norm``: the
-hand-written CUDA kernels for CUDA tensors, the plain version on the CPU
-(``norm_impl="plain"`` forces the plain version, to compare the two on the
-card). ``dtype`` is the conv path's compute type (bfloat16 in
+Layout NCHW. Every norm site goes through ``ops/adain.bias_act_norm`` and
+every [1,2,1] blur (net.py:49-60) through ``blur3x3`` (``ops/blur.py``): the
+hand-written CUDA kernels for CUDA tensors, the plain versions on the CPU
+(``norm_impl="plain"`` forces the plain versions of both, to compare the two
+routes on the card). ``dtype`` is the conv path's compute type (bfloat16 in
 configs/ffhq256.yaml); the style heads, moments, mappings and ToRGB's output
 stay float32, as in the JAX package.
 """
@@ -24,7 +25,7 @@ stay float32, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -32,10 +33,12 @@ import torch.nn.functional as F
 
 from soft_intro_vae_torch.models.lreq import LreqConv2d, LreqConvTranspose2d, LreqDense
 from soft_intro_vae_torch.ops.adain import bias_act_norm
+from soft_intro_vae_torch.ops.blur import Blur3x3, blur3x3_plain
 from soft_intro_vae_torch.parallel.mesh import randn_rows
 
 Tensor = torch.Tensor
 NOISE_MODES = ("batch", "batch_constant", "none")
+BLUR_IMPLS = ("auto", "plain", "cuda")
 
 
 def pixel_norm(x: Tensor, epsilon: float = 1e-8) -> Tensor:
@@ -71,21 +74,20 @@ def downscale2d(x: Tensor, factor: int = 2) -> Tensor:
     return F.avg_pool2d(x, factor, factor)
 
 
-_BLUR_KERNELS: Dict[Tuple[torch.dtype, torch.device], Tensor] = {}
-
-
-def blur3x3(x: Tensor) -> Tensor:
+def blur3x3(x: Tensor, impl: str = "auto") -> Tensor:
     """Depthwise [1,2,1] x [1,2,1] / 16 blur (net.py:49-60), in x's type.
-
-    The 3x3 filter is made once per (type, device) and kept: a step copies
-    no host data to the device, which a CUDA graph's capture forbids."""
-    key = (x.dtype, x.device)
-    k = _BLUR_KERNELS.get(key)
-    if k is None:
-        f = torch.tensor([1.0, 2.0, 1.0], dtype=x.dtype)
-        k = _BLUR_KERNELS.setdefault(key, ((f[:, None] * f[None, :]) / 16.0).to(x.device))
-    c = x.shape[1]
-    return F.conv2d(x, k.expand(c, 1, 3, 3), padding=1, groups=c)
+    ``impl="auto"`` launches the hand-written kernel (``ops/blur.py``) on a
+    CUDA tensor and runs the plain version, ``F.conv2d``, on a CPU tensor;
+    ``"plain"`` forces the plain version (comparisons only); ``"cuda"`` needs
+    a CUDA tensor. A CUDA tensor launches the kernel or raises, and never
+    falls back."""
+    if impl not in BLUR_IMPLS:
+        raise NotImplementedError(f"unknown blur impl: {impl!r}")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError("impl='cuda' needs a CUDA tensor")
+    if impl == "plain" or not x.is_cuda:
+        return blur3x3_plain(x)
+    return Blur3x3.apply(x, "cuda")
 
 
 def blend_lerp(prev: Tensor, x: Tensor, blend: Union[float, Tensor]) -> Tensor:
@@ -142,7 +144,7 @@ class EncodeBlock(nn.Module):
         if self.last:
             x = F.leaky_relu(self.dense(x.flatten(1)), 0.2)
             return x, self.style_1(style_1), self.style_2(x.float())
-        x = self.conv_2(blur3x3(x))
+        x = self.conv_2(blur3x3(x, self.norm_impl))
         if not self.fused_scale:
             x = downscale2d(x)
         x, m2, v2 = bias_act_norm(x, self.bias_2.view(-1), mode="plain", eps=1e-5,
@@ -206,7 +208,7 @@ class DecodeBlock(nn.Module):
         x = x.to(self.dtype)
         if self.has_first_conv:
             x = self.conv_1(x) if self.fused_scale else self.conv_1(upscale2d(x))
-            x = blur3x3(x)
+            x = blur3x3(x, self.norm_impl)
         x = self._styled_norm(x, self.style_1(s1), self.noise_weight_1, self.bias_1, noise_mode,
                               generator)
         x = self.conv_2(x)

@@ -70,7 +70,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bias_act_norm_error_string.restype = ctypes.c_char_p
 
 
-_library = cuda_build.Library(spec, _declare)
+def _with_the_blur():
+    from soft_intro_vae_torch.ops import blur_cuda
+
+    return [blur_cuda.spec()]
+
+
+_library = cuda_build.Library(spec, _declare, companions=_with_the_blur)
 
 
 def library_path() -> str:

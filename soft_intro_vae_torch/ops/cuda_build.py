@@ -131,17 +131,22 @@ class Library:
 
     ``spec`` returns the (source, stem, extra flags) triple when called, so a
     test can point a wrapper at another source; ``declare`` sets the
-    ``argtypes``/``restype`` of the library's C functions.
+    ``argtypes``/``restype`` of the library's C functions; ``companions``
+    returns the specs of the libraries that the same callers need, which the
+    first build compiles beside this one (the style nets' fused norm and
+    blur).
     """
 
-    def __init__(self, spec: Callable[[], Spec], declare: Callable[[ctypes.CDLL], None]):
+    def __init__(self, spec: Callable[[], Spec], declare: Callable[[ctypes.CDLL], None],
+                 companions: Callable[[], Sequence[Spec]] = tuple):
         self.spec = spec
         self.declare = declare
+        self.companions = companions
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
     def build(self) -> str:
-        return build_many([self.spec()])[0]
+        return build_many([self.spec(), *self.companions()])[0]
 
     def load(self) -> ctypes.CDLL:
         with self._lock:

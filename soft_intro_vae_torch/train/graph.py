@@ -83,7 +83,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from soft_intro_vae_torch.models import remat
-from soft_intro_vae_torch.ops import adain_cuda, chamfer_cuda, u8norm_cuda
+from soft_intro_vae_torch.ops import adain_cuda, blur_cuda, chamfer_cuda, u8norm_cuda
 from soft_intro_vae_torch.parallel import collectives
 from soft_intro_vae_torch.parallel.mesh import current_world
 from soft_intro_vae_torch.utils.profiling import span
@@ -108,7 +108,8 @@ def wrapper_counts() -> Dict[str, int]:
     and each kind of collective's (``nccl_<kind>``, parallel/collectives.py)."""
     counts = {"chamfer_nearest": chamfer_cuda.launches,
               "bias_act_norm_fwd": adain_cuda.launches_fwd,
-              "bias_act_norm_bwd": adain_cuda.launches_bwd, "u8norm": u8norm_cuda.launches}
+              "bias_act_norm_bwd": adain_cuda.launches_bwd, "u8norm": u8norm_cuda.launches,
+              "blur3x3": blur_cuda.launches}
     counts.update({f"nccl_{k}": collectives.calls[k] for k in collectives.KINDS})
     return counts
 

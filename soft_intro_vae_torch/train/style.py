@@ -149,7 +149,7 @@ class StyleConfig:
     # "float32" normalizes on the host
     host_storage: str = "uint8"
     device: str = "cuda"            # port: where the nets and the batches live
-    norm_impl: str = "auto"         # port: auto | plain | cuda (ops/adain.py)
+    norm_impl: str = "auto"         # port: auto | plain | cuda (ops/adain.py, ops/blur.py)
 
     @classmethod
     def from_yaml(cls, path: str, overrides: Sequence[str] = ()) -> "StyleConfig":

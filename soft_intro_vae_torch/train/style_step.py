@@ -94,8 +94,9 @@ class StyleModelConfig:
     encoder_variant: str = "EncoderDefault"  # MODEL.ENCODER (defaults.py:60)
     # conv-path activation type; IN statistics, style heads and losses stay f32
     compute_dtype: str = "float32"
-    # the fused norm's route: auto (the CUDA kernels for CUDA tensors) | plain
-    # (the PyTorch version, for comparing the two on the card) | cuda
+    # the route of the nets' kernels, the fused norm and the blur: auto (the
+    # CUDA kernels for CUDA tensors) | plain (the PyTorch versions, for
+    # comparing the two on the card) | cuda
     norm_impl: str = "auto"
     # TRAIN.REMAT: checkpoint encoder + mapping_tl and the decoder (module doc)
     remat: bool = False

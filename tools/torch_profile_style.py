@@ -35,6 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = (
     ("fwd_kernel", "fused norm forward (hand-written)"),
     ("bwd_kernel", "fused norm backward (hand-written)"),
+    ("blur3x3_stencil", "blur (hand-written)"),
     ("depthwise", "blur (depthwise conv)"),
     ("multi_tensor", "optimizer + EMA (foreach)"),
     ("foreach", "optimizer + EMA (foreach)"),
