@@ -74,7 +74,7 @@ from soft_intro_vae_torch.train.state import TrainState
 from soft_intro_vae_torch.train.step import UNIT_LUT, StepConfig, build_train_steps
 from soft_intro_vae_torch.train.threed import _epoch_means
 from soft_intro_vae_torch.utils.checkpoint import Checkpointer, load_pretrained
-from soft_intro_vae_torch.utils.device import resolve_device
+from soft_intro_vae_torch.utils.device import resolve_device, set_matmul_precision
 from soft_intro_vae_torch.utils.tracker import LossTracker
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -140,17 +140,6 @@ def _check_supported(cfg: ImageConfig) -> None:
         raise ValueError(f"compute_dtype must be one of {list(DTYPES)}, got {cfg.compute_dtype!r}")
 
 
-def _set_matmul_precision(precision: Optional[str]) -> None:
-    if precision is None:
-        return
-    if precision not in ("float32", "tensorfloat32"):
-        raise ValueError(f"matmul_precision must be None, 'float32' or 'tensorfloat32', "
-                         f"got {precision!r}")
-    tf32 = precision == "tensorfloat32"
-    torch.backends.cudnn.allow_tf32 = tf32
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-
-
 def build_image_models(spec: ImageSpec, cfg: ImageConfig) -> SoftIntroVAE:
     """The encoder/decoder pair (and the target decoder when bootstrapping)."""
     return SoftIntroVAE(cdim=spec.cdim, zdim=cfg.z_dim, channels=spec.channels,
@@ -163,7 +152,7 @@ def build_image_training(cfg: ImageConfig, spec: ImageSpec):
     steps take NHWC batches, uint8 or float."""
     _check_supported(cfg)
     device = resolve_device(cfg.device)
-    _set_matmul_precision(cfg.matmul_precision)
+    set_matmul_precision(cfg.matmul_precision)
     seed = cfg.seed if cfg.seed != -1 else int(time.time()) % (2**31)
     # the nets are made from the seed without touching the global RNG
     with torch.random.fork_rng(devices=[]):

@@ -8,7 +8,8 @@ best-JSD checkpointing (:428-442), epoch-numbered checkpoints with optimizer
 state (:444-449) and resume from the latest epoch (:191-198).
 
 The per-epoch shuffle is ``np.random.default_rng((seed + 2, epoch))``, as in
-the JAX trainer, so both packages see the same batches. Step metrics stay on
+the JAX trainer, so both packages see the same batches; ``epoch_batches``
+selects them, each selection a ``feed.gather`` span. Step metrics stay on
 the device and are fetched once per epoch (and every ``nan_check_iter`` steps).
 On the card each step is a replay of a CUDA graph of one step
 (train/graph.py ``one_step``), the counterpart of the JAX trainer's jitted
@@ -30,7 +31,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +45,8 @@ from soft_intro_vae_torch.train import optim
 from soft_intro_vae_torch.train.state import TrainState
 from soft_intro_vae_torch.train.step import StepConfig, build_train_steps
 from soft_intro_vae_torch.utils.checkpoint import Checkpointer
-from soft_intro_vae_torch.utils.device import resolve_device
+from soft_intro_vae_torch.utils.device import resolve_device, set_matmul_precision
+from soft_intro_vae_torch.utils.profiling import span
 from soft_intro_vae_torch.utils.tracker import LossTracker
 
 
@@ -85,6 +87,10 @@ class ThreeDConfig:
     # fields (models/pointnet.py), which its trainer leaves at the recipe's
     conv_channels: Tuple[int, ...] = CONV_CHANNELS
     hidden: Tuple[int, ...] = HIDDEN
+    # port: None keeps PyTorch's defaults (the Conv1d layers through cuDNN in
+    # TF32, the Linear layers in float32); "float32" turns TF32 off for cuDNN
+    # and cuBLAS; "tensorfloat32" turns it on (utils/device.py)
+    matmul_precision: Optional[str] = None
 
     @classmethod
     def from_json(cls, path: str) -> "ThreeDConfig":
@@ -120,6 +126,7 @@ class ThreeDConfig:
             synthetic_n=c.get("synthetic_n", cls.synthetic_n),
             verbose=c.get("verbose", cls.verbose),
             num_devices=c.get("num_devices", cls.num_devices),
+            matmul_precision=c.get("matmul_precision", cls.matmul_precision),
         )
 
 
@@ -131,6 +138,7 @@ def build_3d_training(cfg: ThreeDConfig, scan_steps: int = 1):
         raise ValueError(f"Invalid reconstruction loss. Accepted `chamfer`, got: {cfg.reconstruction_loss}")
     check_world(cfg.num_devices, cfg.batch_size)
     device = resolve_device(cfg.device)
+    set_matmul_precision(cfg.matmul_precision)
     seed = cfg.seed if cfg.seed != -1 else int(time.time()) % (2**31)
     # the nets are made from the seed without touching the global RNG
     with torch.random.fork_rng(devices=[]):
@@ -154,6 +162,33 @@ def build_3d_training(cfg: ThreeDConfig, scan_steps: int = 1):
     )
     vanilla_step, intro_step = build_train_steps(cfg=step_cfg, scan_steps=scan_steps)
     return shard_state(state), vanilla_step, intro_step
+
+
+def epoch_batches(train_pts: np.ndarray, train_dev: torch.Tensor, epoch: int, *,
+                  data_seed: int, batch_size: int, rows: slice = slice(None),
+                  rotate: bool = False) -> Iterator[torch.Tensor]:
+    """The batches of one epoch, in order: the epoch's permutation
+    ``np.random.default_rng((data_seed, epoch))`` cut into whole batches of
+    ``batch_size`` (the last partial batch dropped), and of each batch this
+    rank's ``rows`` (all of it off the distributed route), gathered on the
+    device from the resident set ``train_dev``. With ``rotate`` each batch
+    is taken from the host's ``train_pts`` and turned about Z by angles
+    drawn for the whole batch from the same generator (3d:256-260). Each
+    batch's selection is a ``feed.gather`` span (utils/profiling.py), the
+    batch's index in the epoch its ``batch``."""
+    n = train_pts.shape[0]
+    data_rng = np.random.default_rng((data_seed, epoch))
+    idx = data_rng.permutation(n)
+    idx_dev = torch.from_numpy(idx).to(train_dev.device)
+    for b, i in enumerate(range(0, n - batch_size + 1, batch_size)):
+        with span("feed.gather", batch=b):
+            if rotate:
+                angles = data_rng.random(batch_size) * 180.0
+                x = torch.from_numpy(rotate_z(train_pts[idx[i:i + batch_size][rows]],
+                                              angles[rows])).to(train_dev.device)
+            else:
+                x = train_dev[idx_dev[i:i + batch_size][rows]]
+        yield x
 
 
 @torch.no_grad()
@@ -240,7 +275,6 @@ def train_soft_intro_vae_3d(cfg: ThreeDConfig):
     train_dev = torch.from_numpy(train_pts).to(device)
     best = {"epoch": 0, "jsd": None}
     summary = dict(best_jsd=None, epochs_run=0)
-    n = train_pts.shape[0]
     bs = cfg.batch_size
     for epoch in range(starting_epoch, cfg.max_epochs + 1):
         step_fn = vanilla_step if epoch < cfg.num_vae else intro_step
@@ -248,18 +282,9 @@ def train_soft_intro_vae_3d(cfg: ThreeDConfig):
             vanilla_step = None  # its graphs and their memory pool (train/graph.py)
             if device.type == "cuda":
                 torch.cuda.empty_cache()
-        data_rng = np.random.default_rng((data_seed, epoch))
-        idx = data_rng.permutation(n)
-        idx_dev = torch.from_numpy(idx).to(device)
         device_metrics = []
-        for i in range(0, n - bs + 1, bs):
-            # this rank's rows of the global batch (all of it off the distributed route)
-            if cfg.apply_random_rotation:
-                angles = data_rng.random(bs) * 180.0
-                x = torch.from_numpy(rotate_z(train_pts[idx[i : i + bs][mine]],
-                                              angles[mine])).to(device)
-            else:
-                x = train_dev[idx_dev[i : i + bs][mine]]
+        for x in epoch_batches(train_pts, train_dev, epoch, data_seed=data_seed, batch_size=bs,
+                               rows=mine, rotate=cfg.apply_random_rotation):
             state, m = step_fn(state, x)
             device_metrics.append(m)
             # sub-epoch NaN abort: one small sync every nan_check_iter steps

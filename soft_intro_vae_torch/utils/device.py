@@ -1,6 +1,10 @@
-"""Device selection for the port's entry points: CUDA unless asked otherwise."""
+"""Device selection for the port's entry points: CUDA unless asked otherwise,
+and the float32 matmul precision the trainers' ``matmul_precision`` fields
+set."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -31,3 +35,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         elif world.backend == "nccl" and dev.index != world.local_rank:
             raise RuntimeError(f"rank {world.rank} drives cuda:{world.local_rank}, not {dev}")
     return dev
+
+
+def set_matmul_precision(precision: Optional[str]) -> None:
+    """A trainer's ``matmul_precision``: None keeps PyTorch's settings (by
+    default cuDNN's convolutions in TF32, cuBLAS's matmuls in float32);
+    "float32" turns TF32 off for both, the counterpart of the JAX field's
+    full-precision matmuls; "tensorfloat32" turns it on for both."""
+    if precision is None:
+        return
+    if precision not in ("float32", "tensorfloat32"):
+        raise ValueError(f"matmul_precision must be None, 'float32' or 'tensorfloat32', "
+                         f"got {precision!r}")
+    tf32 = precision == "tensorfloat32"
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32

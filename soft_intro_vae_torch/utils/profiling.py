@@ -32,6 +32,10 @@ or taken out of its parent's time by one:
     ``get`` and the step stream's wait on the copy), batch = the consumer's
     count. Both counts run one past the last batch: the end of the stream is
     a ``next`` and a wait of their own;
+  * ``feed.gather`` (loop): the 3D trainer's selection of one batch from
+    its device-resident set (train/threed.py ``epoch_batches``: the rows of
+    the epoch's permutation gathered on the device, or rotated on the host
+    and copied), batch = the batch's index in its epoch;
   * ``graph.replay`` (loop): one replay of a captured step, its input copies
     and slot writes included;
   * ``graph.warmup``, ``graph.capture`` (loop): a graph's eager warm-up
