@@ -26,7 +26,10 @@ Phases, each printing one line; any failure exits non-zero:
               around it; the step time after warm-up graphed and eager, device
               busy time and peak memory; one step through the kernel against
               the plain route;
-  4b. graph 3d: the generic step's K-step form (``scan_steps`` 4, a CUDA
+  4b. graph 3d: the encoder's per-point GEMMs (models/pointnet.py) at
+              cuDNN's TF32 flag, on and off, each product bit-equal to
+              ``torch.mm`` under cuBLAS's flag at that value, cuBLAS's flag
+              restored; the generic step's K-step form (``scan_steps`` 4, a CUDA
               graph of one step with the chamfer kernel captured) at that
               width, two calls against 8 eager steps from the same seed: every
               metric, parameter, BN buffer, Adam moment and count bit-equal;
@@ -1170,8 +1173,52 @@ def single_line(compared: int, counts: dict, captured: dict, graphs: int,
             f"captures {captured or 'none'}")
 
 
+def point_gemm_handoff(device) -> str:
+    """The encoder's per-point layer (models/pointnet.py ``PointConv1d``) at
+    the recipe's widest one, 65,536 rows of 256 -> 512: with cuDNN's TF32
+    flag on and off and cuBLAS's flag set the other way, its forward, input
+    gradient and weight gradient each bit-equal to ``torch.mm`` under cuBLAS's
+    flag at cuDNN's value, cuBLAS's flag as it was afterwards, and the TF32
+    products apart from the float32 ones."""
+    import torch
+
+    from soft_intro_vae_torch.models.pointnet import PointConv1d
+
+    gen = torch.Generator(device).manual_seed(26)
+    rows = torch.randn(65536, 256, device=device, generator=gen)
+    dy = torch.randn(65536, 512, device=device, generator=gen)
+    layer = PointConv1d(256, 512, 1, bias=False).to(device)
+    w = layer.weight.detach().view(512, 256)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    products = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32, not tf32
+            x = rows.clone().requires_grad_()
+            layer.weight.grad = None
+            y = layer(x)
+            y.backward(dy)
+            check(torch.backends.cuda.matmul.allow_tf32 == (not tf32),
+                  f"PointConv1d left cuBLAS's TF32 flag at {torch.backends.cuda.matmul.allow_tf32}")
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            want = (rows.mm(w.t()), dy.mm(w), dy.t().mm(rows).view(512, 256, 1))
+            got = (y.detach(), x.grad, layer.weight.grad)
+            for name, g, r in zip(("forward", "input gradient", "weight gradient"), got, want):
+                check(torch.equal(g, r), f"PointConv1d {name} with cuDNN TF32 {tf32}: max |diff| "
+                      f"{(g - r).abs().max().item():.3e} from torch.mm under cuBLAS TF32 {tf32}")
+            products[tf32] = got
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    apart = [not torch.equal(a, b) for a, b in zip(products[False], products[True])]
+    check(all(apart), f"PointConv1d's TF32 and float32 products equal: {apart}")
+    return ("PointConv1d at 65536 x 256 -> 512, cuDNN TF32 off and on with cuBLAS's flag "
+            "opposite: forward, input and weight gradients bit-equal to torch.mm under cuBLAS "
+            "at cuDNN's flag, cuBLAS's flag restored, TF32 apart from float32")
+
+
 def phase_graph_3d(device):
-    """The generic step's K-step form with the 3D StepConfig at full width
+    """The encoder's per-point GEMMs' precision handoff (``point_gemm_handoff``);
+    the generic step's K-step form with the 3D StepConfig at full width
     (2048 points, batch 32, z 128): two calls of K = 4 (a CUDA graph, the
     chamfer kernel captured) against 8 eager steps from the same seed; then
     the 3D trainer's route at scan_steps 1 (one graph a key) against the
@@ -1183,6 +1230,7 @@ def phase_graph_3d(device):
     from soft_intro_vae_torch.train.step import INTRO_NOISES
     from soft_intro_vae_torch.train.threed import ThreeDConfig, build_3d_training, calc_jsd_valid
 
+    handoff = point_gemm_handoff(device)
     base = ThreeDConfig.from_json(os.path.join(ROOT, "configs", "soft_intro_vae_hp.json"))
     cfg = dataclasses.replace(base, seed=0, device=str(device), verbose=False)
     n, b = 8, cfg.batch_size
@@ -1226,9 +1274,9 @@ def phase_graph_3d(device):
           f"tensors differ (first {differ[:6]}), max |diff| {worst!r}")
     check(len(jsd) == 2 and jsd[0] == jsd[1] and math.isfinite(jsd[0]),
           f"the valid JSD between replays: {jsd}")
-    print(f"graph 3d: 2048 points, batch 32, z 128, TF32 off, cuDNN deterministic, PyTorch's "
-          f"deterministic scatter_add_. K-step form, two calls of K = 4 (3 eager warm-up steps, a "
-          f"capture, 5 replays) against 8 eager steps: {k_step}. The trainer's single step "
+    print(f"graph 3d: {handoff}. 2048 points, batch 32, z 128, TF32 off, cuDNN "
+          f"deterministic, PyTorch's deterministic scatter_add_. K-step form, two calls of "
+          f"K = 4 (3 eager warm-up steps, a capture, 5 replays) against 8 eager steps: {k_step}. The trainer's single step "
           f"(one_step), {len(script)} steps ({n_vanilla} vanilla, then intro with the valid JSD "
           f"{jsd[0]:.6f} between replays, then intro with injected draws) against the eager "
           f"steps: " + single_line(compared, counts, captured, graphs)

@@ -51,11 +51,12 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d (momentum 0.1, eps 1e-5) that normalizes in float32 and
+class RoutedBatchNorm:
+    """The forward of the port's BatchNorm layers, put before a torch
+    BatchNorm class: it normalizes in float32 (float64 input in float64) and
     returns the input's dtype. In train mode on the distributed route its
     statistics are the global batch's (parallel/collectives.py); without a
-    process group it is PyTorch's (cuDNN's on the card).
+    process group it is PyTorch's.
 
     In the recompute of a checkpointed forward (models/remat.py) a train-mode
     BN normalizes with the batch's statistics and leaves its running buffers
@@ -65,17 +66,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: Tensor) -> Tensor:
         world = current_world()
         frame = current_frame()
+        h = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training and world.active:
-            return batch_norm(x.float(), self, world, frame).to(x.dtype)
-        if self.training and frame is not None and frame.replaying:
+            y = batch_norm(h, self, world, frame)
+        elif self.training and frame is not None and frame.replaying:
             # scratch copies of the buffers take the update: the same call as
             # the forward's, so the backward finds the tensors it saved
-            return F.batch_norm(x.float(), self.running_mean.clone(), self.running_var.clone(),
-                                self.weight, self.bias, True, self.momentum,
-                                self.eps).to(x.dtype)
-        if x.dtype == torch.float32:
-            return super().forward(x)
-        return super().forward(x.float()).to(x.dtype)
+            y = F.batch_norm(h, self.running_mean.clone(), self.running_var.clone(),
+                             self.weight, self.bias, True, self.momentum, self.eps)
+        else:
+            y = super().forward(h)
+        return y.to(x.dtype)
+
+
+class BatchNorm2d(RoutedBatchNorm, nn.BatchNorm2d):
+    """nn.BatchNorm2d (momentum 0.1, eps 1e-5) on the port's routes
+    (``RoutedBatchNorm``); cuDNN's on the card without a process group."""
 
 
 def avg_pool_2x(x: Tensor) -> Tensor:

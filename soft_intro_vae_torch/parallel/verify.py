@@ -15,8 +15,8 @@ and global draws as arguments, so a test can feed the JAX package's.
   * ``style_step_probe``: style intro steps (EMA, dlatent_avg, blend), with a
     rank-0 checkpoint after the first and a resume from one, so a run saved
     under N ranks can resume under M;
-  * ``encoder_bn_probe``: the image encoder's BatchNorms over the global
-    batch, forward and input gradient;
+  * ``encoder_bn_probe``: the image or PointNet encoder's BatchNorms over
+    the global batch, forward and input gradient;
   * ``training_probe``: the image, 3D or style trainer in each rank;
   * ``stream_probe``: the style trainer's streamed dataset in each rank, its
     shard files and its rows of each global batch;
@@ -158,27 +158,35 @@ def sgd_gradient_probe(x: np.ndarray, noises: Optional[Arrays] = None,
 
 
 def encoder_bn_probe(x: np.ndarray, weights: Dict[str, torch.Tensor], w_mu: np.ndarray,
-                     w_logvar: np.ndarray, *, z_dim: int = 16, channels: Sequence[int] = (8, 16),
-                     image_size: int = 16, device: str = "cpu") -> Arrays:
+                     w_logvar: np.ndarray, *, variant: str = "image", z_dim: int = 16,
+                     channels: Sequence[int] = (8, 16), image_size: int = 16,
+                     device: str = "cpu") -> Arrays:
     """The image encoder's train-mode forward on this rank's rows of the
-    global NHWC batch ``x``, and the gradient of the loss
-    ``sum(mu * w_mu) + sum(logvar * w_logvar)`` over the global batch
-    (``w_*`` global too) with respect to its rows: the BatchNorms' global
-    route, forward and backward. Returns this rank's ``mu``, ``logvar``,
-    ``dx`` (NHWC) and the BN buffers after the forward (``buf/<name>``)."""
+    global NHWC batch ``x`` (``variant`` "3d": the PointNet encoder's, on
+    (B, N, 3) clouds, its BatchNorms over the points-major rows), and the
+    gradient of the loss ``sum(mu * w_mu) + sum(logvar * w_logvar)`` over
+    the global batch (``w_*`` global too) with respect to its rows: the
+    BatchNorms' global route, forward and backward. Returns this rank's
+    ``mu``, ``logvar``, ``dx`` (in ``x``'s layout) and the BN buffers after
+    the forward (``buf/<name>``)."""
     from soft_intro_vae_torch.models.conv import ConvEncoder
+    from soft_intro_vae_torch.models.pointnet import PointNetEncoder
 
     dev = torch.device(device)
-    enc = ConvEncoder(cdim=3, zdim=z_dim, channels=tuple(channels), image_size=image_size)
+    x_local = torch.from_numpy(np.ascontiguousarray(shard_batch(x))).to(dev).requires_grad_(True)
+    if variant == "3d":
+        enc = PointNetEncoder(z_dim=z_dim, conv_channels=tuple(channels))
+        xb = x_local
+    else:
+        enc = ConvEncoder(cdim=3, zdim=z_dim, channels=tuple(channels), image_size=image_size)
+        xb = x_local.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     enc.load_state_dict(weights, strict=True)
     enc = enc.to(dev).train()
-    xb = torch.from_numpy(np.ascontiguousarray(shard_batch(x))).to(dev)
-    xb = xb.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last).requires_grad_(True)
     mu, logvar = enc(xb)
     wm = torch.from_numpy(shard_batch(w_mu)).to(dev)
     wl = torch.from_numpy(shard_batch(w_logvar)).to(dev)
     ((mu * wm).sum() + (logvar * wl).sum()).backward()
-    out = {"mu": _np(mu), "logvar": _np(logvar), "dx": _np(xb.grad.permute(0, 2, 3, 1))}
+    out = {"mu": _np(mu), "logvar": _np(logvar), "dx": _np(x_local.grad)}
     out.update({f"buf/{k}": _np(b) for k, b in enc.named_buffers()})
     return out
 

@@ -87,9 +87,10 @@ class ThreeDConfig:
     # fields (models/pointnet.py), which its trainer leaves at the recipe's
     conv_channels: Tuple[int, ...] = CONV_CHANNELS
     hidden: Tuple[int, ...] = HIDDEN
-    # port: None keeps PyTorch's defaults (the Conv1d layers through cuDNN in
-    # TF32, the Linear layers in float32); "float32" turns TF32 off for cuDNN
-    # and cuBLAS; "tensorfloat32" turns it on (utils/device.py)
+    # port: None keeps PyTorch's defaults (the encoder's per-point GEMMs in
+    # TF32, as cuDNN's flag says, models/pointnet.py; the Linear layers in
+    # float32); "float32" turns TF32 off for cuDNN and cuBLAS; "tensorfloat32"
+    # turns it on (utils/device.py)
     matmul_precision: Optional[str] = None
 
     @classmethod

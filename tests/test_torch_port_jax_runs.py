@@ -17,6 +17,12 @@
   rec_loss, real_kl and fake_kl within rel 1e-4, step 2's losses within rel
   2e-3, dlatent_avg within rtol 2e-3 atol 1e-4, every EMA element within
   0.6 lr and their mean difference under 0.02 lr.
+* The committed 3D checkpoint, loaded through the port's ``Checkpointer``,
+  encodes a recorded batch, in train and eval mode, as the reference's
+  Conv1d chain does with those weights (``conv1d_encoder``,
+  tests/test_torch_port_pointnet.py; within 1e-5 of each output's scale,
+  the train-mode BN buffers too) and as the JAX encoder does with the
+  file's tree (within 1e-5).
 * The 3D trainer resumes a JAX run (``resume``, the latest file of its
   ``weights/``): its epoch runs on the batches the JAX trainer fed in that
   epoch, bit for bit (both shuffle by ``(seed + 2, epoch)``), and eval_3d's
@@ -29,6 +35,7 @@
   trainer's, bit for bit.
 """
 
+import copy
 import dataclasses
 import importlib.util
 import json
@@ -43,6 +50,7 @@ import torch
 from flax import serialization
 
 from soft_intro_vae_tpu.cli import eval_3d as jax_eval_3d
+from soft_intro_vae_tpu.models.pointnet import PointNetEncoder as JaxPointNetEncoder
 from soft_intro_vae_tpu.train import style as jax_style
 from soft_intro_vae_tpu.train import threed as jax_threed
 from soft_intro_vae_torch.cli import eval_3d
@@ -55,6 +63,7 @@ from soft_intro_vae_torch.train.threed import ThreeDConfig, build_3d_training
 from soft_intro_vae_torch.utils import flax_msgpack
 from soft_intro_vae_torch.utils.checkpoint import Checkpointer
 from soft_intro_vae_torch.utils.from_jax import pointnet_state_dict_from_jax, style_state_dict_from_jax
+from tests.test_torch_port_pointnet import conv1d_encoder
 from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -169,6 +178,32 @@ def test_threed_fixture_carries_and_continues_as_jax(generated):
         else:
             assert np.linalg.norm((g - b) - (w - b)) <= 1e-2 * np.linalg.norm(w - b) + 1e-7, k
     assert beyond <= 1e-4 * total, f"{beyond} of {total} elements beyond atol 1e-5"
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_threed_fixture_encodes_as_the_conv1d_chain_and_jax(train):
+    directory = os.path.join(FIXTURES, "jax_checkpoints", "threed")
+    rec = _recorded(directory)
+    cfg = dataclasses.replace(ThreeDConfig.from_json(HP), **json.loads(str(rec["config"])),
+                              device="cpu")
+    state = build_3d_training(cfg)[0]
+    Checkpointer(directory).load_latest(state)
+    enc = state.model.encoder.train(train)
+    oracle = copy.deepcopy(enc)
+    x = torch.from_numpy(rec["x"][0])
+    with torch.no_grad():
+        got, want = enc(x), conv1d_encoder(oracle, x)
+    saved = _flax_state(os.path.join(directory, "model_epoch_2_iter_4.ckpt"))
+    jenc = JaxPointNetEncoder(z_dim=cfg.z_size, conv_channels=tuple(cfg.conv_channels))
+    jout = jax.jit(lambda v, x: jenc.apply(v, x, train=train, mutable=["batch_stats"]))(
+        {"params": saved["params_e"], "batch_stats": saved["stats_e"]}, jnp.asarray(rec["x"][0]))[0]
+    for g, w, j in zip(got, want, jout):
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5 * scale)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=0, atol=1e-5 * scale)
+    for (name, b), o in zip(enc.named_buffers(), oracle.buffers()):
+        scale = float(o.abs().max()) or 1.0
+        np.testing.assert_allclose(b.numpy(), o.numpy(), rtol=0, atol=1e-5 * scale, err_msg=name)
 
 
 def test_style_fixture_carries_and_continues_as_jax(generated):

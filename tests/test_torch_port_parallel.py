@@ -13,6 +13,11 @@ torch.distributed) against soft_intro_vae_tpu.parallel, on the CPU over gloo.
     running variance with torch's n/(n-1)), in a world of 1 in this process and in a world of
     2 spawned ranks, whose halves concatenated equal the world of 1 within
     1e-6 of each tensor's scale;
+  * the global BatchNorm on the PointNet encoder's points-major (B·N, C)
+    rows against torch's BatchNorm1d on the reference's (B, C, N) layout of
+    the global batch (``conv1d_encoder``, tests/test_torch_port_pointnet.py,
+    same weights): forward, input gradient and running buffers within 1e-5
+    of each tensor's scale, in a world of 1 and of 2 ranks;
   * without a process group no collective is issued; ``num_devices`` that is
     not the world size raises, in the trainers and the CLI.
 
@@ -37,6 +42,7 @@ from soft_intro_vae_torch.parallel import collectives, mesh, multihost
 from soft_intro_vae_torch.parallel.launch import run_ranks, write_inputs
 from soft_intro_vae_torch.parallel.verify import encoder_bn_probe
 from soft_intro_vae_torch.utils.from_jax import image_state_dict_from_jax
+from tests.test_torch_port_pointnet import conv1d_encoder
 from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 
 CH, IMG, Z, B = (8, 16), 16, 16, 8
@@ -197,6 +203,74 @@ def test_global_batch_norm_two_ranks_equal_one(tmp_path, bn_setup):
             scale = float(np.abs(one[k]).max()) or 1.0
             np.testing.assert_allclose(two[0][k], one[k], rtol=0, atol=1e-6 * scale, err_msg=k)
     _check_against_flax({k[3:]: v for k, v in one.items()}, before, want)
+
+
+PN_CH, PN_Z, PN_B, PN_N = (8, 16, 16), 4, 4, 32
+
+
+@pytest.fixture(scope="module")
+def point_bn_setup():
+    """A PointNet encoder's weights with BN affine and statistics away from
+    their initial values, a global batch of clouds, the loss weights, and
+    the Conv1d chain's forward, input gradient and BN buffers on that batch
+    in train mode, torch's BatchNorm1d over (B, C, N)."""
+    from soft_intro_vae_torch.models.pointnet import PointNetEncoder
+
+    gen = torch.Generator().manual_seed(11)
+    enc = PointNetEncoder(z_dim=PN_Z, conv_channels=PN_CH)
+    with torch.no_grad():
+        for i in range(len(PN_CH)):
+            bn = enc.conv[3 * i + 2]
+            bn.weight.add_(0.3 * torch.randn(bn.weight.shape, generator=gen))
+            bn.bias.add_(0.3 * torch.randn(bn.bias.shape, generator=gen))
+            bn.running_mean.copy_(0.2 * torch.randn(bn.running_mean.shape, generator=gen))
+    before = {k: v.clone() for k, v in enc.state_dict().items()}
+    x = (torch.rand(PN_B, PN_N, 3, generator=gen) - 0.5).requires_grad_()
+    wm, wl = (torch.randn(PN_B, PN_Z, generator=gen) for _ in range(2))
+    enc.train()
+    mu, lv = conv1d_encoder(enc, x)
+    ((mu * wm).sum() + (lv * wl).sum()).backward()
+    want = dict(mu=mu.detach().numpy(), logvar=lv.detach().numpy(), dx=x.grad.numpy())
+    want.update({f"buf/{k}": b.numpy() for k, b in enc.named_buffers()})
+    inputs = (x.detach().numpy(), wm.numpy(), wl.numpy())
+    return before, inputs, want
+
+
+def _check_against_batchnorm1d(got, want):
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        scale = float(np.abs(w).max()) or 1.0
+        np.testing.assert_allclose(got[k], w, rtol=0, atol=1e-5 * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_global_batch_norm_on_point_rows_matches_batchnorm1d(request, tmp_path, point_bn_setup,
+                                                             world):
+    """The PointNet encoder's BNs on the distributed route, over its
+    points-major rows: one all-reduce a BN forward and one a backward in a
+    world of 1 in this process; in a world of 2 spawned ranks the halves
+    concatenated, and each rank's buffers, against BatchNorm1d on the whole
+    batch in the (B, C, N) layout."""
+    before, (x, wm, wl), want = point_bn_setup
+    kwargs = dict(variant="3d", z_dim=PN_Z, channels=PN_CH)
+    if world == 1:
+        request.getfixturevalue("world_of_one")
+        calls = dict(collectives.calls)
+        got = encoder_bn_probe(x, {k: v.clone() for k, v in before.items()}, wm, wl, **kwargs)
+        for kind in ("bn_fwd", "bn_bwd"):
+            assert collectives.calls[kind] - calls.get(kind, 0) == len(PN_CH)
+        _check_against_batchnorm1d(got, want)
+        return
+    inputs = write_inputs(str(tmp_path / "in.npz"), {"bn": dict(
+        x=x, w_mu=wm, w_logvar=wl, weights={k: v.numpy() for k, v in before.items()})})
+    ranks = run_ranks(2, [dict(name="bn", probe="encoder_bn_probe", kwargs=kwargs)],
+                      str(tmp_path), inputs=inputs)
+    for k in [k for k in ranks[0] if k.startswith("bn/buf/")]:
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)  # replicated
+    got = {k[3:]: v for k, v in ranks[0].items()}
+    for k in ("mu", "logvar", "dx"):
+        got[k] = np.concatenate([ranks[0][f"bn/{k}"], ranks[1][f"bn/{k}"]])
+    _check_against_batchnorm1d(got, want)
 
 
 def test_no_collective_without_a_process_group(bn_setup):

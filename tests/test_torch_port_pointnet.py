@@ -4,6 +4,13 @@ JAX parameters (with randomised BN affine and statistics) go through
 ``pointnet_state_dict_from_jax`` into the port; the same numpy inputs then go
 through both. Outputs agree at atol 1e-5 (float32 products summed in another
 order).
+
+The port's encoder runs points-major, each per-point layer a GEMM on
+(B·N, C) rows; ``conv1d_encoder``, the reference's Conv1d chain on the
+(B, C, N) layout with the same weights and BN modules, is its plain oracle:
+in float64 the two agree to rounding in outputs, every gradient and the
+running buffers, and the encoder dispatches no convolution. Each GEMM runs
+with cuBLAS's TF32 flag at cuDNN's, the flag that governed the Conv1d.
 """
 
 import copy
@@ -13,11 +20,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from soft_intro_vae_tpu.models.pointnet import PointNetDecoder as JaxDecoder
 from soft_intro_vae_tpu.models.pointnet import PointNetEncoder as JaxEncoder
 from soft_intro_vae_tpu.utils.torch_compat import convert_pointnet_decoder, convert_pointnet_encoder
-from soft_intro_vae_torch.models.pointnet import SoftIntroVAE3D
+from soft_intro_vae_torch.models import remat
+from soft_intro_vae_torch.models.pointnet import PointConv1d, SoftIntroVAE3D, _PointMax
 from soft_intro_vae_torch.utils.from_jax import pointnet_state_dict_from_jax
 from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 
@@ -131,3 +141,146 @@ def test_state_dict_names_are_the_references():
     for i in (0, 2, 4, 6, 8):
         assert f"decoder.model.{i}.weight" in names and f"decoder.model.{i}.bias" in names
     assert {"encoder.fc.0.weight", "encoder.mu_layer.bias", "encoder.std_layer.weight"} <= names
+
+
+# ------------------------------------------ points-major against Conv1d ---
+
+def conv1d_encoder(enc, x):
+    """The encoder as the reference runs it (vae.py:104-141): each per-point
+    layer ``F.conv1d`` on the (B, C, N) layout with ``enc``'s weight, ReLU,
+    then ``enc``'s BN module through torch's own BatchNorm1d forward; the
+    max-pool over the points. The plain oracle of the points-major encoder."""
+    h = x.transpose(1, 2)
+    for i in range(0, len(enc.conv), 3):
+        h = F.relu(F.conv1d(h, enc.conv[i].weight))
+        h = torch.nn.BatchNorm1d.forward(enc.conv[i + 2], h)
+    h = enc.fc(h.amax(dim=2))
+    return enc.mu_layer(h), enc.std_layer(h)
+
+
+def _random_encoder(dtype, seed=7):
+    """A port encoder at the recipe's widths with BN affine and running
+    statistics away from their initial values."""
+    gen = torch.Generator().manual_seed(seed)
+    enc = SoftIntroVAE3D(z_dim=Z, n_points=N).encoder.to(dtype)
+    with torch.no_grad():
+        for i in range(5):
+            bn = enc.conv[3 * i + 2]
+            bn.weight.copy_(1 + 0.2 * torch.randn(bn.weight.shape, generator=gen))
+            bn.bias.copy_(0.2 * torch.randn(bn.bias.shape, generator=gen))
+            bn.running_mean.copy_(0.3 * torch.randn(bn.running_mean.shape, generator=gen))
+            bn.running_var.uniform_(0.5, 1.5, generator=gen)
+    return enc
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_points_major_encoder_equals_the_conv1d_chain(train):
+    """float64, one forward and backward of ``sum(mu * wm) + sum(logvar *
+    wl)``: (mu, logvar), the gradients of every parameter and of the input
+    cloud, and the running buffers after the step, within rounding."""
+    ours = _random_encoder(torch.float64).train(train)
+    oracle = copy.deepcopy(ours)
+    gen = torch.Generator().manual_seed(8)
+    x = 0.3 * torch.randn(B, N, 3, dtype=torch.float64, generator=gen)
+    wm, wl = (torch.randn(B, Z, dtype=torch.float64, generator=gen) for _ in range(2))
+    got, want = {}, {}
+    for enc, fn, out in ((ours, ours, got), (oracle, lambda v: conv1d_encoder(oracle, v), want)):
+        xg = x.clone().requires_grad_()
+        mu, lv = fn(xg)
+        ((mu * wm).sum() + (lv * wl).sum()).backward()
+        out.update(mu=mu.detach(), logvar=lv.detach(), dx=xg.grad)
+        out.update({f"grad/{k}": p.grad for k, p in enc.named_parameters()})
+        out.update({f"buf/{k}": b for k, b in enc.named_buffers()})
+    # 21 parameters (5 conv weights, 5 BN affine pairs, 3 Linear pairs), 15 BN buffers
+    assert got.keys() == want.keys() and len(got) == 3 + 21 + 15
+    for k, w in want.items():
+        g = got[k]
+        if k.endswith("num_batches_tracked"):
+            assert int(g) == int(w) == int(train), k
+            continue
+        scale = float(w.abs().max())
+        assert scale > 0, k
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-12 * scale, msg=k)
+
+
+class _Dispatched(TorchDispatchMode):
+    """Every aten op dispatched inside, with cuBLAS's TF32 flag as it stood."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append((func._schema.name, torch.backends.cuda.matmul.allow_tf32))
+        return func(*args, **(kwargs or {}))
+
+
+def test_encoder_dispatches_no_convolution():
+    enc = _random_encoder(torch.float32).train()
+    x = (0.3 * torch.randn(B, N, 3)).requires_grad_()
+    with _Dispatched() as seen:
+        mu, lv = enc(x)
+        (mu.sum() + lv.square().sum()).backward()
+    names = {name for name, _ in seen.ops}
+    assert "aten::mm" in names and "aten::native_batch_norm_backward" in names, sorted(names)
+    assert not [n for n in names if "conv" in n], sorted(names)
+
+
+@pytest.mark.parametrize("tf32", [False, True], ids=["cudnn_fp32", "cudnn_tf32"])
+def test_point_gemms_run_at_cudnn_precision(tf32):
+    """The layer's three GEMMs (forward, input and weight gradients) each run
+    with cuBLAS's TF32 flag at cuDNN's, set before the forward, though
+    cuBLAS's stood the other way and the backward runs after the flags were
+    put back; cuBLAS's flag is as it was after each call."""
+    layer = PointConv1d(6, 5, 1, bias=False)
+    rows = torch.randn(40, 6, requires_grad=True)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32, not tf32
+        with _Dispatched() as seen:
+            y = layer(rows)
+            assert torch.backends.cuda.matmul.allow_tf32 == (not tf32)
+            torch.backends.cudnn.allow_tf32 = not tf32
+            y.backward(torch.randn(40, 5))
+        assert torch.backends.cuda.matmul.allow_tf32 == (not tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    mms = [flag for name, flag in seen.ops if name == "aten::mm"]
+    assert mms == [tf32] * 3
+    w = layer.weight.detach()[:, :, 0]
+    torch.testing.assert_close(y, rows.detach() @ w.t(), rtol=0, atol=0)
+
+
+def test_remat_encoder_moves_bn_buffers_once():
+    """Under activation checkpointing (models/remat.py) the backward runs the
+    encoder's forward again; its BNs take the batch's statistics without
+    moving their running buffers, so outputs, gradients and buffers equal a
+    plain forward's, ``num_batches_tracked`` 1."""
+    plain = _random_encoder(torch.float32).train()
+    rematted = copy.deepcopy(plain)
+    x = 0.3 * torch.randn(B, N, 3)
+    runs = []
+    for enc, call in ((plain, lambda v: plain(v)), (rematted, lambda v: remat.checkpoint(rematted, v))):
+        xg = x.clone().requires_grad_()
+        mu, lv = call(xg)
+        (mu.sum() + lv.square().sum()).backward()
+        runs.append([mu, lv, xg.grad] + [p.grad for p in enc.parameters()] + list(enc.buffers()))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert all(int(rematted.conv[3 * i + 2].num_batches_tracked) == 1 for i in range(5))
+
+
+def test_point_max_pool_splits_ties_as_amax():
+    """The max-pool over the points: values and gradient bit-equal to
+    ``amax``'s over the same axis, ties (a channel dead on every point of a
+    cloud, as ReLU before BN makes it) sharing the gradient evenly."""
+    gen = torch.Generator().manual_seed(9)
+    h = torch.randint(0, 4, (3, 7, 5), generator=gen).float()
+    h[1, :, 2] = -0.5  # a whole channel tied
+    dy = torch.randn(3, 5, generator=gen)
+    got_h, want_h = h.clone().requires_grad_(), h.clone().requires_grad_()
+    got, want = _PointMax.apply(got_h), want_h.amax(dim=1)
+    got.backward(dy)
+    want.backward(dy)
+    assert torch.equal(got, want) and torch.equal(got_h.grad, want_h.grad)
+    assert torch.equal(got_h.grad[1, :, 2], torch.full((7,), float(dy[1, 2]) / 7))
