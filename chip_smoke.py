@@ -843,14 +843,16 @@ def phase_blur(device, peaks):
     return record
 
 
+# the hand-written kernels' names in ops/cuda_build.py ``launches``
+KERNELS = ("chamfer_nearest", "bias_act_norm_fwd", "bias_act_norm_bwd", "u8norm", "blur3x3")
+
+
 def reset_counts() -> None:
-    from soft_intro_vae_torch.ops import adain_cuda, blur_cuda, chamfer_cuda, u8norm_cuda
+    from soft_intro_vae_torch.ops import cuda_build
+    from soft_intro_vae_torch.parallel import collectives
     from soft_intro_vae_torch.train import graph
 
-    from soft_intro_vae_torch.parallel import collectives
-
-    chamfer_cuda.launches = u8norm_cuda.launches = blur_cuda.launches = 0
-    adain_cuda.launches_fwd = adain_cuda.launches_bwd = 0
+    cuda_build.launches.clear()
     collectives.calls.clear()
     graph.captured.clear()
     graph.replayed.clear()
@@ -863,7 +865,9 @@ def read_counts() -> dict:
     (train/graph.py); with no graph, the wrappers' counts."""
     from soft_intro_vae_torch.train import graph
 
-    return {k: v - graph.captured[k] + graph.replayed[k] for k, v in graph.wrapper_counts().items()}
+    counts = graph.wrapper_counts()
+    return {k: counts[k] - graph.captured[k] + graph.replayed[k]
+            for k in dict.fromkeys([*KERNELS, *counts, *graph.replayed])}
 
 
 def captured_graphs() -> int:

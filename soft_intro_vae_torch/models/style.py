@@ -34,11 +34,11 @@ import torch.nn.functional as F
 from soft_intro_vae_torch.models.lreq import LreqConv2d, LreqConvTranspose2d, LreqDense
 from soft_intro_vae_torch.ops.adain import bias_act_norm
 from soft_intro_vae_torch.ops.blur import Blur3x3, blur3x3_plain
+from soft_intro_vae_torch.ops.cuda_build import use_kernel
 from soft_intro_vae_torch.parallel.mesh import randn_rows
 
 Tensor = torch.Tensor
 NOISE_MODES = ("batch", "batch_constant", "none")
-BLUR_IMPLS = ("auto", "plain", "cuda")
 
 
 def pixel_norm(x: Tensor, epsilon: float = 1e-8) -> Tensor:
@@ -79,15 +79,11 @@ def blur3x3(x: Tensor, impl: str = "auto") -> Tensor:
     ``impl="auto"`` launches the hand-written kernel (``ops/blur.py``) on a
     CUDA tensor and runs the plain version, ``F.conv2d``, on a CPU tensor;
     ``"plain"`` forces the plain version (comparisons only); ``"cuda"`` needs
-    a CUDA tensor. A CUDA tensor launches the kernel or raises, and never
-    falls back."""
-    if impl not in BLUR_IMPLS:
-        raise NotImplementedError(f"unknown blur impl: {impl!r}")
-    if impl == "cuda" and not x.is_cuda:
-        raise ValueError("impl='cuda' needs a CUDA tensor")
-    if impl == "plain" or not x.is_cuda:
-        return blur3x3_plain(x)
-    return Blur3x3.apply(x, "cuda")
+    a CUDA tensor (``ops/cuda_build.py use_kernel``). A CUDA tensor launches
+    the kernel or raises, and never falls back."""
+    if use_kernel(impl, x, "blur"):
+        return Blur3x3.apply(x, "cuda")
+    return blur3x3_plain(x)
 
 
 def blend_lerp(prev: Tensor, x: Tensor, blend: Union[float, Tensor]) -> Tensor:

@@ -19,7 +19,8 @@ Two implementations of one function:
     taken from autograd). They are the CPU path and the kernels' twins.
   * the CUDA kernels of ``ops/adain_cuda.py`` (one launch each way).
 
-``bias_act_norm`` dispatches on where x lies: the kernels for CUDA tensors,
+``bias_act_norm`` dispatches on where x lies (``ops/cuda_build.py
+use_kernel``): the kernels for CUDA tensors,
 the plain functions for CPU tensors. ``impl="plain"`` forces the plain
 functions (to compare the two routes on the card); a CUDA tensor otherwise
 launches the kernel or raises, and never falls back.
@@ -34,10 +35,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from soft_intro_vae_torch.ops import adain_cuda
+from soft_intro_vae_torch.ops import adain_cuda, cuda_build
 
 Tensor = torch.Tensor
-IMPLS = ("auto", "plain", "cuda")
 MODES = tuple(adain_cuda.MODES)
 
 
@@ -163,14 +163,6 @@ class BiasActNorm(torch.autograd.Function):
                 None, d_nw, None, None, None, None, None)
 
 
-def _use_kernel(impl: str, x: Tensor) -> bool:
-    if impl not in IMPLS:
-        raise NotImplementedError(f"unknown fused-norm impl: {impl!r}")
-    if impl == "cuda" and not x.is_cuda:
-        raise ValueError("impl='cuda' needs CUDA tensors")
-    return impl != "plain" and x.is_cuda
-
-
 def bias_act_norm(x: Tensor, bias: Tensor, g: Optional[Tensor] = None,
                   b: Optional[Tensor] = None, n: Optional[Tensor] = None,
                   nw: Optional[Tensor] = None, *, mode: str = "plain", eps: float = 1e-8,
@@ -189,7 +181,7 @@ def bias_act_norm(x: Tensor, bias: Tensor, g: Optional[Tensor] = None,
         raise ValueError("g and b come together (AdaIN) or not at all")
     if mode == "noise" and (n is None or nw is None):
         raise ValueError("mode='noise' needs n (B, H, W) and nw (C,)")
-    use_kernel = _use_kernel(impl, x)
+    use_kernel = cuda_build.use_kernel(impl, x, "fused-norm")
     ct = _compute_dtype(x)
 
     def side(t):

@@ -3,8 +3,11 @@
 Replaces the TPU kernels of soft_intro_vae_tpu/ops/adain_pallas.py:
 ``_fwd_pallas`` (``forward`` here, one launch) and ``_bwd_pallas``
 (``backward`` here, one launch). The source's header says what bounds them
-and how they are laid out. Built and loaded by ``ops/cuda_build.py`` on the
-first call with a CUDA tensor, never at import.
+and how they are laid out. Built, loaded and launched by
+``ops/cuda_build.py`` (its module doc) on the first call with a CUDA tensor,
+never at import, in one ``nvcc`` round with the blur's library
+(``cuda_build.BUILT_TOGETHER``); the launches count under
+``bias_act_norm_fwd`` and ``bias_act_norm_bwd``.
 
 Layout NCHW: x (B, C, H, W) in float32 or bfloat16, n (B, H, W) f32, bias and
 nw (C,) f32, g and b (B, C) f32, all contiguous on one device. The wrappers
@@ -27,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from soft_intro_vae_torch.ops import cuda_build
+from soft_intro_vae_torch.ops.cuda_build import SM90_SMEM as BLOCK_SMEM
 
 Tensor = torch.Tensor
 
@@ -38,7 +42,6 @@ _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 DIRECTIONS = ("fwd", "bwd")
 
 # Launch-plan limits; csrc/bias_act_norm.cu keeps the same numbers and checks them.
-BLOCK_SMEM = 232448          # shared memory one CTA may use on sm_90 (227 KB)
 STATIC_SMEM = 1024           # bound on the kernels' static shared memory
 MAX_DYNAMIC_SMEM = BLOCK_SMEM - STATIC_SMEM
 MAX_THREADS = 512
@@ -48,11 +51,6 @@ SMALL_THREADS = 128
 # Chosen on the card with tools/torch_norm_plans.py (PERF.md):
 STAGE_TARGET = 64 * 1024     # staged bytes per CTA the cluster size aims at
 UNITS_PER_THREAD = 8         # 16-byte units a thread takes per pass, where the slice allows
-
-# kernel launches made by ``forward`` and ``backward``; a run sets them to 0
-# and reads them back to show which path went through the kernels
-launches_fwd = 0
-launches_bwd = 0
 
 
 def spec() -> cuda_build.Spec:
@@ -66,17 +64,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bias_act_norm_fwd.restype = ctypes.c_int
     lib.bias_act_norm_bwd.argtypes = [p] * 15 + [i] * 6 + [i] * 8 + [f] * 5 + [p]
     lib.bias_act_norm_bwd.restype = ctypes.c_int
-    lib.bias_act_norm_error_string.argtypes = [ctypes.c_int]
-    lib.bias_act_norm_error_string.restype = ctypes.c_char_p
 
 
-def _with_the_blur():
-    from soft_intro_vae_torch.ops import blur_cuda
-
-    return [blur_cuda.spec()]
-
-
-_library = cuda_build.Library(spec, _declare, companions=_with_the_blur)
+_library = cuda_build.Library(spec, _declare, "bias_act_norm")
 
 
 def library_path() -> str:
@@ -210,25 +200,17 @@ def _aligned(t: Optional[Tensor]) -> Optional[Tensor]:
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _raise_on(lib, err: int, what: str, pl: Plan) -> None:
-    if err != 0:
-        raise RuntimeError(f"bias_act_norm {what} launch failed: "
-                           f"{lib.bias_act_norm_error_string(err).decode()} ({pl})")
-
-
 def forward(x: Tensor, bias: Tensor, g: Optional[Tensor] = None, b: Optional[Tensor] = None,
             n: Optional[Tensor] = None, nw: Optional[Tensor] = None, *, mode: str = "plain",
             eps: float = 1e-8, slope: float = 0.2, corr_scale: float = 1.0
             ) -> Tuple[Tensor, Tensor, Tensor]:
     """(y, mean, var): y like x, mean and var (B, C) f32. One kernel launch,
     shaped by ``plan(B, C, H*W, x.dtype, "fwd")``."""
-    global launches_fwd
     bsz, ch, size = _check_common(x, bias, g, n, nw, mode)
     if (g is None) != (b is None):
         raise ValueError("g and b come together (AdaIN) or not at all")
     if b is not None:
         _check("b", b, (bsz, ch), x.device)
-    lib = load()
     pl = plan(bsz, ch, size, x.dtype, "fwd")
     x = _aligned(x)
     n = _aligned(n) if mode == "noise" else None
@@ -236,16 +218,13 @@ def forward(x: Tensor, bias: Tensor, g: Optional[Tensor] = None, b: Optional[Ten
     mean = torch.empty((bsz, ch), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
     ks, c2, _ = corr_constants(corr_scale)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bias_act_norm_fwd(
-            x.data_ptr(), bias.data_ptr(), _ptr(g), _ptr(b),
-            _ptr(n), _ptr(nw) if mode == "noise" else None,
-            y.data_ptr(), mean.data_ptr(), var.data_ptr(), bsz * ch, ch, size,
-            _DTYPES[x.dtype], MODES[mode], int(g is not None), *pl.args(), eps, slope, ks, c2,
-            stream)
-    _raise_on(lib, err, "forward", pl)
-    launches_fwd += 1
+    _library.launch(
+        "bias_act_norm_fwd", "bias_act_norm_fwd", x.device,
+        x.data_ptr(), bias.data_ptr(), _ptr(g), _ptr(b),
+        _ptr(n), _ptr(nw) if mode == "noise" else None,
+        y.data_ptr(), mean.data_ptr(), var.data_ptr(), bsz * ch, ch, size,
+        _DTYPES[x.dtype], MODES[mode], int(g is not None), *pl.args(), eps, slope, ks, c2,
+        context=pl)
     return y, mean, var
 
 
@@ -255,27 +234,22 @@ def backward(dy: Tensor, x: Tensor, bias: Tensor, g: Optional[Tensor], n: Option
              corr_scale: float = 1.0) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """(dx, d_bst, d_g, d_bias, d_nw): dx like x, the rest (B, C) f32 per (b, c),
     not yet summed over b. One kernel launch, shaped by ``plan(..., "bwd")``."""
-    global launches_bwd
     bsz, ch, size = _check_common(x, bias, g, n, nw, mode)
     _check("dy", dy, tuple(x.shape), x.device, x.dtype)
     for name, t in (("mean", mean), ("var", var), ("dm", dm), ("dv", dv)):
         _check(name, t, (bsz, ch), x.device)
-    lib = load()
     pl = plan(bsz, ch, size, x.dtype, "bwd")
     dy, x = _aligned(dy), _aligned(x)
     n = _aligned(n) if mode == "noise" else None
     dx = torch.empty_like(x)
     sums = torch.empty((4, bsz, ch), dtype=torch.float32, device=x.device)
     ks, c2, inv_s2 = corr_constants(corr_scale)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bias_act_norm_bwd(
-            dy.data_ptr(), x.data_ptr(), bias.data_ptr(), _ptr(g),
-            _ptr(n), _ptr(nw) if mode == "noise" else None,
-            mean.data_ptr(), var.data_ptr(), dm.data_ptr(), dv.data_ptr(), dx.data_ptr(),
-            sums[0].data_ptr(), sums[1].data_ptr(), sums[2].data_ptr(), sums[3].data_ptr(),
-            bsz * ch, ch, size, _DTYPES[x.dtype], MODES[mode], int(g is not None),
-            *pl.args(), eps, slope, ks, c2, inv_s2, stream)
-    _raise_on(lib, err, "backward", pl)
-    launches_bwd += 1
+    _library.launch(
+        "bias_act_norm_bwd", "bias_act_norm_bwd", x.device,
+        dy.data_ptr(), x.data_ptr(), bias.data_ptr(), _ptr(g),
+        _ptr(n), _ptr(nw) if mode == "noise" else None,
+        mean.data_ptr(), var.data_ptr(), dm.data_ptr(), dv.data_ptr(), dx.data_ptr(),
+        sums[0].data_ptr(), sums[1].data_ptr(), sums[2].data_ptr(), sums[3].data_ptr(),
+        bsz * ch, ch, size, _DTYPES[x.dtype], MODES[mode], int(g is not None),
+        *pl.args(), eps, slope, ks, c2, inv_s2, context=pl)
     return dx, sums[0], sums[1], sums[2], sums[3]

@@ -7,25 +7,25 @@ the nine terms in the order ATen's depthwise backward does). It replaces no
 TPU kernel; the source's header says why it exists, what bounds it and how
 it is laid out.
 
-Build: ``ops/cuda_build.py`` compiles the source with ``nvcc`` into a shared
-library with a plain C interface under ``soft_intro_vae_torch/_build/``, in
-the same ``build_many`` call as the fused norm's (``ops/adain_cuda.py``): the
-style nets need both. ``ctypes`` loads it on the first call with a CUDA
-tensor, never at import. A build or launch failure raises; there is no
-fallback to the plain version. ``plan`` and ``check_input`` are plain
-Python, so the CPU tests reach them.
+Build and launch: ``ops/cuda_build.py`` (its module doc), on the first call
+with a CUDA tensor, never at import, in one ``nvcc`` round with the fused
+norm's library (``cuda_build.BUILT_TOGETHER``: the style nets need both); a
+launch, forward or backward, counts under ``blur3x3``. A build or launch
+failure raises; there is no fallback to the plain version. ``plan`` and
+``check_input`` are plain Python, so the CPU tests reach them.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 from typing import NamedTuple
 
 import torch
 
 from soft_intro_vae_torch.ops import cuda_build
+from soft_intro_vae_torch.ops.cuda_build import H100_SMS
+from soft_intro_vae_torch.ops.cuda_build import SM90_SMEM as MAX_SMEM
 
 Tensor = torch.Tensor
 
@@ -34,15 +34,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 VEC_BYTES = 16               # the widest load or store a thread makes
 MAX_THREADS = 1024
-MAX_SMEM = 232448            # dynamic shared memory one CTA may use on sm_90 (227 KB)
 TILE_BYTES = 32 * 1024       # staged bytes a CTA aims at
 THREADS = 256                # threads a CTA aims at
-H100_SMS = 132
 MIN_CTAS_PER_SM = 2          # small planes: the fewest CTAs an SM gets
-
-# kernel launches made by ``blur3x3_cuda``, forward and backward; a run sets
-# it to 0 and reads it back to show which path went through the kernel
-launches = 0
 
 
 class Plan(NamedTuple):
@@ -79,17 +73,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.blur3x3.argtypes = [p, p, ll] + [i] * 14 + [p]
     lib.blur3x3.restype = ctypes.c_int
-    lib.blur3x3_error_string.argtypes = [ctypes.c_int]
-    lib.blur3x3_error_string.restype = ctypes.c_char_p
 
 
-def _with_the_norm():
-    from soft_intro_vae_torch.ops import adain_cuda
-
-    return [adain_cuda.spec()]
-
-
-_library = cuda_build.Library(spec, _declare, companions=_with_the_norm)
+_library = cuda_build.Library(spec, _declare, "blur3x3")
 
 
 def load() -> ctypes.CDLL:
@@ -158,7 +144,6 @@ def blur3x3_cuda(x: Tensor, flip: bool = False) -> Tensor:
     """The blur of x (B, C, H, W) on the card, in x's type: one launch on the
     current stream, no synchronisation. ``flip`` sums the nine terms in the
     order of ATen's depthwise backward (the Function's backward)."""
-    global launches
     if not x.is_cuda:
         raise ValueError(f"blur3x3_cuda needs a CUDA tensor, got device {x.device}")
     check_input(x)
@@ -166,19 +151,8 @@ def blur3x3_cuda(x: Tensor, flip: bool = False) -> Tensor:
     if y.numel() == 0:
         return y
     bsz, ch, h, w = x.shape
-    p = plan(bsz * ch, h, w, x.dtype, _sms(x.device))
-    lib = load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.blur3x3(x.data_ptr(), y.data_ptr(), bsz * ch, h, w, _DTYPES[x.dtype],
-                          int(flip), *p.args(), stream)
-    if err != 0:
-        raise RuntimeError(f"blur3x3 launch failed: {lib.blur3x3_error_string(err).decode()} "
-                           f"(shape {tuple(x.shape)}, {x.dtype}, {p})")
-    launches += 1
+    p = plan(bsz * ch, h, w, x.dtype, cuda_build.sm_count(x.device))
+    _library.launch("blur3x3", "blur3x3", x.device, x.data_ptr(), y.data_ptr(), bsz * ch, h, w,
+                    _DTYPES[x.dtype], int(flip), *p.args(),
+                    context=f"shape {tuple(x.shape)}, {x.dtype}, {p}")
     return y
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -29,9 +29,9 @@ from typing import Tuple
 import torch
 
 from soft_intro_vae_torch.ops import chamfer_cuda
+from soft_intro_vae_torch.ops.cuda_build import use_kernel
 
 Tensor = torch.Tensor
-IMPLS = ("auto", "plain", "cuda")
 
 
 def pairwise_sqdist(a: Tensor, b: Tensor) -> Tensor:
@@ -64,19 +64,10 @@ def nearest_pair_plain(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor, Tensor, Te
     return min_x, amin_x, min_y, amin_y
 
 
-def _resolve_impl(impl: str, t: Tensor) -> str:
-    if impl not in IMPLS:
-        raise NotImplementedError(f"unknown chamfer impl: {impl!r}")
-    if impl == "auto":
-        return "cuda" if t.is_cuda else "plain"
-    if impl == "cuda" and not t.is_cuda:
-        raise ValueError("impl='cuda' needs CUDA tensors")
-    return impl
-
-
 def nearest_pair(x: Tensor, y: Tensor, impl: str = "auto") -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Both directions' nearest points, through one kernel launch on CUDA tensors."""
-    if _resolve_impl(impl, x) == "cuda":
+    """Both directions' nearest points, through one kernel launch on CUDA tensors
+    (``impl``: ``ops/cuda_build.py use_kernel``)."""
+    if use_kernel(impl, x, "chamfer"):
         return chamfer_cuda.nearest_pair_cuda(x.float().contiguous(), y.float().contiguous())
     return nearest_pair_plain(x, y)
 
@@ -112,9 +103,9 @@ def chamfer_distance(preds: Tensor, gts: Tensor, impl: str = "auto") -> Tensor:
 
     ``impl="auto"`` runs the CUDA kernel on CUDA tensors and ``nearest_plain``
     on CPU tensors; ``"plain"`` forces the PyTorch version (comparisons only);
-    ``"cuda"`` requires CUDA tensors.
+    ``"cuda"`` requires CUDA tensors (``ops/cuda_build.py use_kernel``).
     """
-    _resolve_impl(impl, preds)
+    use_kernel(impl, preds, "chamfer")  # a wrong route raises before autograd records
     return ChamferDistance.apply(preds.float(), gts.float(), impl)
 
 

@@ -5,11 +5,10 @@ Replaces the TPU kernel of soft_intro_vae_tpu/ops/chamfer_pallas.py
 and argmins, as the TPU kernel does. The source's header says what bounds it
 and how it is laid out.
 
-Build: ``ops/cuda_build.py`` compiles the source with ``nvcc`` into a shared
-library with a plain C interface under ``soft_intro_vae_torch/_build/``,
-keyed by a hash of the source and the flags, and ``ctypes`` loads it. That
-happens on the first call with a CUDA tensor, never at import. A build or
-launch failure raises; there is no fallback to the plain version.
+Build and launch: ``ops/cuda_build.py`` (its module doc), on the first call
+with a CUDA tensor, never at import; the launch counts under
+``chamfer_nearest``. A build or launch failure raises; there is no fallback
+to the plain version.
 
 ``plan`` picks the launch's shape from (B, N, M) and the card's SM count
 alone, in plain Python so that the CPU tests can hold it to its invariants;
@@ -21,13 +20,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import os
 from typing import Tuple
 
 import torch
 
 from soft_intro_vae_torch.ops import cuda_build
+from soft_intro_vae_torch.ops.cuda_build import H100_SMS
+from soft_intro_vae_torch.ops.cuda_build import SM90_SMEM as BLOCK_SMEM
 
 Tensor = torch.Tensor
 
@@ -40,16 +40,10 @@ TILE = 8                     # points of y per row-argmin tile
 MAX_WARPS = 8
 MAX_CHUNK = 4096             # points of y staged at once
 MIN_SLICE = 64               # points of y a work item takes at least
-BLOCK_SMEM = 232448          # shared memory one CTA may use on sm_90 (227 KB)
 STATIC_SMEM = 4096           # bound on the kernel's static shared memory
 MAX_DYNAMIC_SMEM = BLOCK_SMEM - STATIC_SMEM
 CTAS_PER_SM = 2              # resident CTAs an SM: 256 threads of at most 128 registers
 SMEM_PER_CTA = BLOCK_SMEM // CTAS_PER_SM - STATIC_SMEM  # dynamic shared bytes that keep them
-H100_SMS = 132
-
-# kernel launches made by ``nearest_pair_cuda``; a run sets it to 0 and reads
-# it back to show which path went through the kernel
-launches = 0
 
 
 def spec() -> cuda_build.Spec:
@@ -63,11 +57,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.chamfer_nearest_pair.restype = ctypes.c_int
     lib.chamfer_max_active_clusters.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.chamfer_max_active_clusters.restype = ctypes.c_int
-    lib.chamfer_error_string.argtypes = [ctypes.c_int]
-    lib.chamfer_error_string.restype = ctypes.c_char_p
 
 
-_library = cuda_build.Library(spec, _declare)
+_library = cuda_build.Library(spec, _declare, "chamfer")
 
 
 def library_path() -> str:
@@ -139,18 +131,10 @@ def max_active_clusters(pl: Plan, cluster: int) -> int:
     """Thread-block clusters of ``cluster`` CTAs of this plan's shape that the
     current card holds at once: what a design with one cluster per batch
     element would get."""
-    lib = load()
     count = ctypes.c_int(0)
-    err = lib.chamfer_max_active_clusters(pl.warps, pl.smem, cluster, ctypes.byref(count))
-    if err != 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
-                           f"{lib.chamfer_error_string(err).decode()} ({pl})")
+    err = load().chamfer_max_active_clusters(pl.warps, pl.smem, cluster, ctypes.byref(count))
+    _library.check(err, "cudaOccupancyMaxActiveClusters", pl)
     return count.value
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cloud(name: str, t: Tensor) -> None:
@@ -170,7 +154,6 @@ def nearest_pair_cuda(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor, Tensor, Ten
     (B, M). One kernel launch on the current stream, shaped by ``plan(B, N,
     M)``; does not synchronise.
     """
-    global launches
     _check_cloud("x", x)
     _check_cloud("y", y)
     if x.device != y.device or x.shape[0] != y.shape[0]:
@@ -178,22 +161,15 @@ def nearest_pair_cuda(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor, Tensor, Ten
                          f"{tuple(y.shape)} on {y.device}")
     bsz, n, _ = x.shape
     m = y.shape[1]
-    pl = plan(bsz, n, m, _sms(x.device))
+    pl = plan(bsz, n, m, cuda_build.sm_count(x.device))
     if pl.bulk and y.data_ptr() % 16 != 0:
         y = y.clone()  # bulk copies need a 16-byte aligned base
-    lib = load()
     f32 = dict(dtype=torch.float32, device=x.device)
     i64 = dict(dtype=torch.int64, device=x.device)
     min_x, amin_x = torch.empty((bsz, n), **f32), torch.empty((bsz, n), **i64)
     min_y, amin_y = torch.empty((bsz, m), **f32), torch.empty((bsz, m), **i64)
     row_keys = torch.empty((bsz, pl.slices, n), **i64)  # every key is written before it is read
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.chamfer_nearest_pair(x.data_ptr(), y.data_ptr(), min_x.data_ptr(),
-                                       amin_x.data_ptr(), min_y.data_ptr(), amin_y.data_ptr(),
-                                       row_keys.data_ptr(), bsz, n, m, *pl.args(), stream)
-    if err != 0:
-        raise RuntimeError(f"chamfer_nearest launch failed: "
-                           f"{lib.chamfer_error_string(err).decode()} ({pl})")
-    launches += 1
+    _library.launch("chamfer_nearest", "chamfer_nearest_pair", x.device, x.data_ptr(),
+                    y.data_ptr(), min_x.data_ptr(), amin_x.data_ptr(), min_y.data_ptr(),
+                    amin_y.data_ptr(), row_keys.data_ptr(), bsz, n, m, *pl.args(), context=pl)
     return min_x, amin_x, min_y, amin_y

@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels (``ops/csrc/*.cu``).
+"""Build, load, launch and route to the port's hand-written CUDA kernels
+(``ops/csrc/*.cu``): the one binding protocol of ``ops/*_cuda.py``.
 
 Each source becomes a shared library with a plain C interface: ``nvcc
 -shared`` compiles it for sm_90a into ``soft_intro_vae_torch/_build/``, under
@@ -18,17 +19,32 @@ or load failure raises; there is no fallback to a plain version.
 
 A compile is a ``kernels.build`` span (utils/profiling.py), so the time a
 first call spends building can be told from the call's own.
+
+``Library.launch`` is every kernel launch: it enters the tensors' device,
+appends the current stream's handle to the C entry point's arguments, raises
+``RuntimeError`` with the library's own ``<prefix>_error_string`` on a
+non-zero return, and counts the launch in ``launches`` under the kernel's
+name. A launch recorded into a CUDA graph's capture counts once; the graph's
+replays launch it again without a call (train/graph.py counts those).
+
+``use_kernel`` is the route policy of every dispatcher between a kernel and
+its plain version (``IMPLS``). ``sm_count``, ``H100_SMS`` and ``SM90_SMEM``
+are the card's facts the launch plans take.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
 
 from soft_intro_vae_torch.utils.profiling import span
 
@@ -41,6 +57,41 @@ HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 # (source path, library stem, extra nvcc flags)
 Spec = Tuple[str, str, Tuple[str, ...]]
+
+H100_SMS = 132               # the SM count a plan assumes where it is given none
+SM90_SMEM = 232448           # shared memory one CTA may use on sm_90 (227 KB)
+
+# Launches of the hand-written kernels by kernel name, one a wrapper call
+# (eager, or recorded into a CUDA graph's capture); a run clears it and reads
+# it back to show which path went through the kernels
+launches: collections.Counter = collections.Counter()
+
+# The routes of a dispatcher between a kernel and its plain version
+IMPLS = ("auto", "plain", "cuda")
+
+# Libraries the same callers need (the style nets' fused norm and blur): the
+# first build of any of them compiles all of them at once
+BUILT_TOGETHER = ("bias_act_norm", "blur3x3")
+_libraries: Dict[str, "Library"] = {}  # every Library, by stem
+
+
+def use_kernel(impl: str, x: torch.Tensor, what: str) -> bool:
+    """Whether a call on ``x`` takes the kernel: ``"auto"`` takes it for a
+    CUDA tensor and the plain version for a CPU tensor, ``"plain"`` the plain
+    version (to compare the two routes on the card), ``"cuda"`` the kernel,
+    which needs a CUDA tensor. A CUDA tensor on the kernel's route launches
+    it or raises, and never falls back."""
+    if impl not in IMPLS:
+        raise NotImplementedError(f"unknown {what} impl: {impl!r}")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError(f"impl='cuda' needs a CUDA tensor, got device {x.device}")
+    return impl != "plain" and x.is_cuda
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of the card ``device`` names."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def nvcc() -> str:
@@ -131,27 +182,53 @@ class Library:
 
     ``spec`` returns the (source, stem, extra flags) triple when called, so a
     test can point a wrapper at another source; ``declare`` sets the
-    ``argtypes``/``restype`` of the library's C functions; ``companions``
-    returns the specs of the libraries that the same callers need, which the
-    first build compiles beside this one (the style nets' fused norm and
-    blur).
+    ``argtypes``/``restype`` of the library's kernel entry points; ``prefix``
+    names its ``<prefix>_error_string``, declared here. The first build
+    compiles the libraries ``BUILT_TOGETHER`` with this one beside it.
     """
 
     def __init__(self, spec: Callable[[], Spec], declare: Callable[[ctypes.CDLL], None],
-                 companions: Callable[[], Sequence[Spec]] = tuple):
+                 prefix: str):
         self.spec = spec
         self.declare = declare
-        self.companions = companions
+        self.prefix = prefix
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+        _libraries[spec()[1]] = self
 
     def build(self) -> str:
-        return build_many([self.spec(), *self.companions()])[0]
+        own = self.spec()
+        together = [lib.spec() for stem, lib in _libraries.items()
+                    if own[1] in BUILT_TOGETHER and stem in BUILT_TOGETHER and stem != own[1]]
+        return build_many([own, *together])[0]
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(self.build())
                 self.declare(lib)
+                errors = getattr(lib, f"{self.prefix}_error_string")
+                errors.argtypes = [ctypes.c_int]
+                errors.restype = ctypes.c_char_p
                 self._lib = lib
             return self._lib
+
+    def check(self, err: int, what: str, context: object) -> None:
+        """Raise where a C entry point returned ``err`` != 0: ``what``
+        failed, with the library's error string and ``context`` (the plan,
+        the shape)."""
+        if err != 0:
+            text = getattr(self.load(), f"{self.prefix}_error_string")(err).decode()
+            raise RuntimeError(f"{what} failed: {text} ({context})")
+
+    def launch(self, kernel: str, entry: str, device: torch.device, *args,
+               context: object) -> None:
+        """One launch of ``kernel`` through the C entry point ``entry`` on
+        ``device``'s current stream, whose handle follows ``args``; does not
+        synchronise. Raises with ``context`` (the plan, the shape) on a
+        failed launch; counts a launch that succeeded."""
+        fn = getattr(self.load(), entry)
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        self.check(err, f"{kernel} launch", context)
+        launches[kernel] += 1

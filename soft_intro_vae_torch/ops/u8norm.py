@@ -26,9 +26,9 @@ from __future__ import annotations
 import torch
 
 from soft_intro_vae_torch.ops import u8norm_cuda
+from soft_intro_vae_torch.ops.cuda_build import use_kernel
 
 Tensor = torch.Tensor
-IMPLS = ("auto", "plain", "cuda")
 
 
 def u8_to_unit_nchw_plain(x: Tensor) -> Tensor:
@@ -42,11 +42,7 @@ def u8_to_unit_nchw(x: Tensor, impl: str = "auto") -> Tensor:
     """(B, H, W, C) uint8 -> (B, C, H, W) float32, channels-last in memory.
     ``impl="auto"`` launches the kernel on a CUDA tensor and runs the plain
     version on a CPU tensor; ``"plain"`` forces the plain version (comparisons
-    only); ``"cuda"`` needs a CUDA tensor."""
-    if impl not in IMPLS:
-        raise NotImplementedError(f"unknown u8norm impl: {impl!r}")
-    if impl == "cuda" and not x.is_cuda:
-        raise ValueError("impl='cuda' needs a CUDA tensor")
-    if impl == "plain" or not x.is_cuda:
-        return u8_to_unit_nchw_plain(x)
-    return u8norm_cuda.u8_to_unit_nchw_cuda(x)
+    only); ``"cuda"`` needs a CUDA tensor (``ops/cuda_build.py use_kernel``)."""
+    if use_kernel(impl, x, "u8norm"):
+        return u8norm_cuda.u8_to_unit_nchw_cuda(x)
+    return u8_to_unit_nchw_plain(x)

@@ -7,9 +7,8 @@ rounded ``i / 255``, returned as the (B, C, H, W) tensor with channels-last
 strides that the image nets take. The source's header says why PyTorch's own
 divide is not used, what bounds the kernel and how it is laid out.
 
-Build: ``ops/cuda_build.py`` compiles the source with ``nvcc`` into a shared
-library with a plain C interface under ``soft_intro_vae_torch/_build/`` and
-``ctypes`` loads it, on the first call with a CUDA tensor, never at import. A
+Build and launch: ``ops/cuda_build.py`` (its module doc), on the first call
+with a CUDA tensor, never at import; the launch counts under ``u8norm``. A
 build or launch failure raises; there is no fallback to the plain version.
 ``plan`` and ``check_input`` are plain Python, so the CPU tests reach them.
 """
@@ -17,13 +16,13 @@ build or launch failure raises; there is no fallback to the plain version.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 from typing import NamedTuple
 
 import torch
 
 from soft_intro_vae_torch.ops import cuda_build
+from soft_intro_vae_torch.ops.cuda_build import H100_SMS
 
 Tensor = torch.Tensor
 
@@ -31,11 +30,6 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "u8norm.
 VEC = 16                     # input bytes a thread takes an iteration
 THREADS = 128                # measured against 64 and 256 (tools/torch_u8norm_variants.py)
 BLOCKS_PER_SM = 16           # grid cap: the grid-stride loop takes the rest
-H100_SMS = 132
-
-# kernel launches made by ``u8_to_unit_nchw_cuda``; a run sets it to 0 and
-# reads it back to show which path went through the kernel
-launches = 0
 
 
 class Plan(NamedTuple):
@@ -60,11 +54,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.u8norm_to_unit_nhwc.argtypes = [p, p, ll, ll, ll, ll, i, i, p]
     lib.u8norm_to_unit_nhwc.restype = ctypes.c_int
-    lib.u8norm_error_string.argtypes = [ctypes.c_int]
-    lib.u8norm_error_string.restype = ctypes.c_char_p
 
 
-_library = cuda_build.Library(spec, _declare)
+_library = cuda_build.Library(spec, _declare, "u8norm")
 
 
 def load() -> ctypes.CDLL:
@@ -97,30 +89,18 @@ def check_input(x: Tensor) -> None:
         raise ValueError("u8norm takes a contiguous NHWC tensor")
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def u8_to_unit_nchw_cuda(x: Tensor) -> Tensor:
     """(B, H, W, C) uint8 on the card -> (B, C, H, W) float32 with
     channels-last strides, ``x / 255`` correctly rounded. One launch on the
     current stream; does not synchronise."""
-    global launches
     if not x.is_cuda:
         raise ValueError(f"u8norm_cuda needs a CUDA tensor, got device {x.device}")
     check_input(x)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y.permute(0, 3, 1, 2)
-    p = plan(y.numel(), x.data_ptr() % VEC, _sms(x.device))
-    lib = load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.u8norm_to_unit_nhwc(x.data_ptr(), y.data_ptr(), y.numel(), p.head, p.vectors,
-                                      p.tail, p.grid, p.threads, stream)
-    if err != 0:
-        raise RuntimeError(f"u8norm launch failed: {lib.u8norm_error_string(err).decode()} "
-                           f"(shape {tuple(x.shape)}, {p})")
-    launches += 1
+    p = plan(y.numel(), x.data_ptr() % VEC, cuda_build.sm_count(x.device))
+    _library.launch("u8norm", "u8norm_to_unit_nhwc", x.device, x.data_ptr(), y.data_ptr(),
+                    y.numel(), p.head, p.vectors, p.tail, p.grid, p.threads,
+                    context=f"shape {tuple(x.shape)}, {p}")
     return y.permute(0, 3, 1, 2)

@@ -25,7 +25,7 @@ The BatchNorm's autograd Function is the port's all-reduce with autograd:
 torch.distributed.nn.functional's warns that it is deprecated.
 
 Each wrapper adds one to ``calls[kind]`` where it issues its collective and
-nowhere else, so a K-step graph's launches can be counted as the kernels'
+nowhere else, so a step graph's launches can be counted as the kernels'
 are (train/graph.py). Off the distributed route (parallel/mesh.py) every
 function here is a no-op or the local computation, and issues nothing.
 """

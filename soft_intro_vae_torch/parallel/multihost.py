@@ -12,7 +12,7 @@ the arguments come from the environment (``RANK``, ``WORLD_SIZE``,
 two-rank run on one card (gloo carries CUDA tensors for the collectives the
 port uses) is a correctness check, not a way to train.
 
-NCCL collectives are captured into the K-step CUDA graph
+NCCL collectives are captured into the step's CUDA graph
 (train/graph.py); PyTorch's CUDA-graph notes ask for
 ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0`` before the group starts, which
 ``initialize_multihost`` sets unless the caller has set it.

@@ -1,51 +1,45 @@
 """Train steps replayed as CUDA graphs: the port's counterpart of the JAX
 package's compiled step programs.
 
-  * ``k_steps``: K train steps a call (``scan_steps > 1``), the counterpart
-    of the JAX package's ``jax.lax.scan`` over K reference-exact steps in one
-    program (soft_intro_vae_tpu/train/step.py:377-389);
-  * ``one_step``: one step a call, the counterpart of the JAX package's
-    jitted donated-buffer step: the generic step at ``scan_steps == 1``
-    (soft_intro_vae_tpu/train/step.py:390-393; the image, bootstrap, 3D and
-    toy trainers) and the style step per (lod, in_transition)
-    (soft_intro_vae_tpu/train/style_step.py:342-345), whose blend is a
-    float32 0-dim input.
+``one_step(step)`` keeps the step's own signature, ``step(state, x,
+*scalars[, draws])``, and returns 0-dim metrics: the counterpart of the JAX
+package's jitted donated-buffer step, the generic step at ``scan_steps == 1``
+(soft_intro_vae_tpu/train/step.py:390-393; the image, bootstrap, 3D and toy
+trainers) and the style step per (lod, in_transition)
+(soft_intro_vae_tpu/train/style_step.py:342-345), whose blend is a float32
+0-dim input. ``k_steps(step)`` is ``step(state, xs) -> (state, metrics)``
+over ``xs`` of shape (K, B, ...): K calls of ``one_step(step)``, each metric
+stacked to a (K,) tensor under the one-batch step's names, as the JAX
+package's ``jax.lax.scan`` over K steps returns them
+(soft_intro_vae_tpu/train/step.py:377-389). On the CPU a call runs the step
+eagerly. On the card it always runs a CUDA graph and raises when capture
+fails; it never falls back to eager steps.
 
-``k_steps(step)`` turns a one-batch step into ``step(state, xs) -> (state,
-metrics)`` over ``xs`` of shape (K, B, ...), each metric a (K,) tensor under
-the one-batch step's names, as the JAX scan returns them. ``one_step(step)``
-keeps the step's own signature, ``step(state, x, *scalars[, draws])``, and
-returns 0-dim metrics. On the CPU both run the steps eagerly. On the card
-they always run a CUDA graph and raise when capture fails; they never fall
-back to eager steps.
-
-The graph holds one step, captured once per key and replayed once a step,
-so a trailing chunk of k < K batches replays it k times and capture costs
-one step whatever K is. The key is what a ``jax.jit`` step retraces on: the
-batch's shape and dtype, the number of scalar inputs, and the names, shapes
-and dtypes of the injected draws (``step_key``). Each replay reads its batch
-from a static buffer, each 0-dim scalar input (the style step's blend) from
-a static slot, and each injected draw (the generic step's ``noises``, the
-style step's ``nz``: the JAX package's golden-value hook) from a static
-tensor of its shape (device-to-device copies or fills before the replay, on
-the caller's stream); without draws the step draws from ``state.generator``.
-It leaves its metrics in a static row, copied into column i of the (M, K)
-result after the replay: every call returns metrics of its own, which later
-replays do not overwrite. Before its capture a graph
-runs ``WARMUP_STEPS`` eager steps on a side stream, over one call or several
-(cuDNN and cuBLAS handles and workspaces, Adam's lazy state, the fused
-norm's libraries): they are real steps of the run, and their metrics are
-their calls' columns.
+A graph holds one step, captured once per key after ``WARMUP_STEPS`` eager
+steps of that key, one a call, and replayed once a call. The key is what a
+``jax.jit`` step retraces on: the batch's shape and dtype, the number of
+scalar inputs, and the names, shapes and dtypes of the injected draws
+(``step_key``). Each replay reads its batch from a static buffer, each 0-dim
+scalar input (the style step's blend) from a static slot, and each injected
+draw (the generic step's ``noises``, the style step's ``nz``: the JAX
+package's golden-value hook) from a static tensor of its shape
+(device-to-device copies or fills before the replay, on the caller's
+stream); without draws the step draws from ``state.generator``. It leaves
+its metrics in a static row, copied after the replay: every call returns
+metrics of its own, which later replays do not overwrite. The warm-up steps
+run on a side stream (cuDNN and cuBLAS handles and workspaces, Adam's lazy
+state, the kernels' libraries); they are real steps of the run and return
+their own metrics.
 
 What a replay does not run: the step's host code. ``requires_grad`` toggles
 and ``train()`` are fixed at capture (each step ends in the state the next
-one starts from), and ``state.step`` is advanced here, by the replays made.
-Random draws come from ``state.generator``, registered with the graph, so a
-replay draws what the eager step would (the generator's offset advances by a
-whole step a replay); a checkpointed forward that draws from it recomputes
-from clones of its state registered with the graph (models/remat.py
-``Restarts``). Gradients are allocated inside the capture from the
-graph's private pool, as in PyTorch's whole-network capture, and the captured
+one starts from), and ``state.step`` is advanced here, one a replay. Random
+draws come from ``state.generator``, registered with the graph, so a replay
+draws what the eager step would (the generator's offset advances by a whole
+step a replay); a checkpointed forward that draws from it recomputes from
+clones of its state registered with the graph (models/remat.py
+``Restarts``). Gradients are allocated inside the capture from the graph's
+private pool, as in PyTorch's whole-network capture, and the captured
 optimizer steps read them. The LR is read from the optimizer's LR tensor
 (train/optim.py), so ``set_lr`` between calls takes effect.
 
@@ -60,12 +54,18 @@ Data parallelism (parallel/mesh.py): under NCCL the step's collectives (the
 gradient reduces, the BatchNorms' reduces, the metrics' reduce) are issued
 on the side stream in the warm-up steps, which start NCCL's communicator,
 and are captured with the rest of the step, so a replay runs them too. gloo
-cannot be captured: under gloo a K-step call runs K eager steps, and a
-``one_step`` call one eager step, as on the CPU, and each says so once.
+cannot be captured: under gloo a call runs one eager step, as on the CPU,
+and says so once.
 
 Spans (utils/profiling.py): each eager warm-up step is a ``graph.warmup``,
 each capture a ``graph.capture``, and each replay, from the static input's
 copy to the metrics row's, a ``graph.replay``.
+
+Launch counts: a hand-written kernel's wrapper counts each call in
+ops/cuda_build.py ``launches``, a call recorded into a capture included; a
+replay launches the recorded kernels again without calling the wrappers, so
+``captured`` and ``replayed`` count those here, by kernel. Launches on the
+device = wrapper count - captured + replayed.
 
 A graph and its private memory pool live as long as its ``GraphedStep``:
 the style trainer drops a LOD's steps when ``LODDriver`` moves on, and the
@@ -83,19 +83,15 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from soft_intro_vae_torch.models import remat
-from soft_intro_vae_torch.ops import adain_cuda, blur_cuda, chamfer_cuda, u8norm_cuda
+from soft_intro_vae_torch.ops.cuda_build import launches
 from soft_intro_vae_torch.parallel import collectives
 from soft_intro_vae_torch.parallel.mesh import current_world
 from soft_intro_vae_torch.utils.profiling import span
 
 WARMUP_STEPS = 3
 
-# Kernel launches of the hand-written kernels under graphs, by kernel: a
-# wrapper called during a capture records its kernel into the graph (and
-# counts that call in its own ``launches``); each replay launches it again
-# without calling the wrapper. ``captured`` counts the recorded launches,
-# ``replayed`` the launches that replays made. Launches on the device =
-# wrapper count - captured + replayed.
+# Kernel launches that captures recorded and that replays made, by kernel
+# (module doc)
 captured: collections.Counter = collections.Counter()
 replayed: collections.Counter = collections.Counter()
 # CUDA graphs captured so far, every step's together: work between calls (an
@@ -103,13 +99,11 @@ replayed: collections.Counter = collections.Counter()
 captures = 0
 
 
-def wrapper_counts() -> Dict[str, int]:
-    """Each hand-written kernel's wrapper count (ops/*_cuda.py ``launches``),
-    and each kind of collective's (``nccl_<kind>``, parallel/collectives.py)."""
-    counts = {"chamfer_nearest": chamfer_cuda.launches,
-              "bias_act_norm_fwd": adain_cuda.launches_fwd,
-              "bias_act_norm_bwd": adain_cuda.launches_bwd, "u8norm": u8norm_cuda.launches,
-              "blur3x3": blur_cuda.launches}
+def wrapper_counts() -> collections.Counter:
+    """Each hand-written kernel's wrapper calls (ops/cuda_build.py
+    ``launches``), and each kind of collective's (``nccl_<kind>``,
+    parallel/collectives.py)."""
+    counts = collections.Counter(launches)
     counts.update({f"nccl_{k}": collectives.calls[k] for k in collectives.KINDS})
     return counts
 
@@ -118,13 +112,13 @@ def _stack(metrics: Dict[str, torch.Tensor], names) -> torch.Tensor:
     return torch.stack([metrics[n].float() for n in names])
 
 
-def step_key(xs: torch.Tensor, scalars: Sequence = (),
+def step_key(x: torch.Tensor, scalars: Sequence = (),
              draws: Optional[Mapping[str, torch.Tensor]] = None) -> Tuple:
-    """A graph's key for a call on ``xs`` (K, B, ...) with ``scalars`` and
-    ``draws`` (name -> (K, ...) tensor): the batch's shape and dtype, how many
+    """A graph's key for a call on the batch ``x`` with ``scalars`` and
+    ``draws`` (name -> tensor): the batch's shape and dtype, how many
     scalars, and each draw's name, shape and dtype."""
-    named = tuple(sorted((n, tuple(v.shape[1:]), v.dtype) for n, v in (draws or {}).items()))
-    return tuple(xs.shape[1:]), xs.dtype, len(scalars), named
+    named = tuple(sorted((n, tuple(v.shape), v.dtype) for n, v in (draws or {}).items()))
+    return tuple(x.shape), x.dtype, len(scalars), named
 
 
 def _args(scalars, draws) -> list:
@@ -146,7 +140,7 @@ class _Graph:
 
 
 class GraphedStep:
-    """One step captured as a CUDA graph, replayed once a batch (module doc)."""
+    """One step captured as a CUDA graph, replayed once a call (module doc)."""
 
     def __init__(self, step: Callable):
         self.step = step
@@ -157,62 +151,51 @@ class GraphedStep:
         self.offsets: Dict[Tuple, List[int]] = {}  # remat restarts seen in warm-up, by key
         self.names: Dict[Tuple, List[str]] = {}  # the step's metric names, by key
 
-    def __call__(self, state, xs: torch.Tensor, *scalars,
+    def __call__(self, state, x: torch.Tensor, *scalars,
                  draws: Optional[Dict[str, torch.Tensor]] = None):
-        """``xs`` (K, B, ...) on the card; each of ``scalars`` K values
-        (a (K,) float32 tensor on the card, or floats), step i's ``i``-th;
-        ``draws``, injected draws by name, each a (K, ...) tensor on the card."""
-        if not xs.is_cuda:
-            raise ValueError(f"a graphed step takes batches on the card, got {xs.device}")
+        """One step on the batch ``x`` on the card; each of ``scalars`` a
+        float or a float32 0-dim tensor on the card; ``draws``, injected
+        draws by name, each a tensor of the step's own shape on the card."""
+        if not x.is_cuda:
+            raise ValueError(f"a graphed step takes batches on the card, got {x.device}")
         if self.state is None:
             self.state = state
         elif state is not self.state:
             raise ValueError("this step's graph was captured for another TrainState; "
                              "build the steps again for a new state")
-        k = xs.shape[0]
         draws = draws or {}
-        cur = torch.cuda.current_stream(xs.device)
-        key = step_key(xs, scalars, draws)
-
-        def inputs(i):  # step i's scalars and draws
-            return [s[i] for s in scalars], {n: v[i] for n, v in draws.items()}
-
-        done = []
-        while key not in self.graphs and len(done) < k and self.warmed[key] < WARMUP_STEPS:
+        key = step_key(x, scalars, draws)
+        if key not in self.graphs and self.warmed[key] < WARMUP_STEPS:
             with span("graph.warmup"):
-                done.append(self._warm_up(state, key, xs[len(done)], *inputs(len(done)), cur))
-        names = self.names[key]
-        out = torch.empty((len(names), k), dtype=torch.float32, device=xs.device)
-        for i, row in enumerate(done):
-            out[:, i].copy_(row)
-        if len(done) < k and key not in self.graphs:
-            i = len(done)
+                row = self._warm_up(state, key, x, scalars, draws).clone()
+            return state, dict(zip(self.names[key], row))
+        if key not in self.graphs:
             with span("graph.capture"):
-                self.graphs[key] = self._capture(state, key, xs[i], *inputs(i), names)
-        for i in range(len(done), k):
-            with span("graph.replay"):
-                g = self.graphs[key]
-                g.x.copy_(xs[i])
-                for slot, s in zip(g.slots, scalars):
-                    _write(slot, s[i])
-                for n, slot in g.draws.items():
-                    slot.copy_(draws[n][i])
-                _restart_from(state.generator, g.restarts, g.offsets)
-                g.graph.replay()
-                out[:, i].copy_(g.row)
-            replayed.update(g.per_replay)
-        state.step += k - len(done)  # the warm-up steps advanced it themselves
-        return state, dict(zip(names, out))
+                self.graphs[key] = self._capture(state, key, x, scalars, draws)
+        g = self.graphs[key]
+        with span("graph.replay"):
+            g.x.copy_(x)
+            for slot, s in zip(g.slots, scalars):
+                _write(slot, s)
+            for n, slot in g.draws.items():
+                slot.copy_(draws[n])
+            _restart_from(state.generator, g.restarts, g.offsets)
+            g.graph.replay()
+            row = g.row.clone()
+        replayed.update(g.per_replay)
+        state.step += 1  # a warm-up step advances it itself
+        return state, dict(zip(self.names[key], row))
 
-    def _warm_up(self, state, key, x_i, scalars, draws, cur):
+    def _warm_up(self, state, key, x, scalars, draws):
         """One eager step on the side stream: its metrics row."""
+        cur = torch.cuda.current_stream(x.device)
         if self.stream is None:
-            self.stream = torch.cuda.Stream(x_i.device)
-        x = torch.empty_like(x_i)
-        x.copy_(x_i)
+            self.stream = torch.cuda.Stream(x.device)
+        x_side = torch.empty_like(x)
+        x_side.copy_(x)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream), remat.recording(state.generator) as r:
-            _, m = self.step(state, x, *_args(scalars, draws))
+            _, m = self.step(state, x_side, *_args(scalars, draws))
             self.names[key] = list(m)
             row = _stack(m, self.names[key])
         cur.wait_stream(self.stream)
@@ -220,10 +203,10 @@ class GraphedStep:
         self.offsets[key] = r.offsets
         return row
 
-    def _capture(self, state, key, x_i, scalars, draws, names):
-        x_static = torch.empty_like(x_i)
-        x_static.copy_(x_i)  # any batch: capture records, it computes nothing
-        slots = [torch.empty((), dtype=torch.float32, device=x_i.device) for _ in scalars]
+    def _capture(self, state, key, x, scalars, draws):
+        x_static = torch.empty_like(x)
+        x_static.copy_(x)  # any batch: capture records, it computes nothing
+        slots = [torch.empty((), dtype=torch.float32, device=x.device) for _ in scalars]
         for slot, s in zip(slots, scalars):
             _write(slot, s)
         draws_static = {n: v.clone() for n, v in draws.items()}
@@ -238,7 +221,7 @@ class GraphedStep:
         with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"), \
                 remat.capturing(restarts):
             _, m = self.step(state, x_static, *_args(slots, draws_static))
-            row_static = _stack(m, names)
+            row_static = _stack(m, self.names[key])
         state.step = step  # the captured step runs on replay
         global captures
         captures += 1
@@ -253,7 +236,7 @@ def _write(slot: torch.Tensor, value) -> None:
     if isinstance(value, torch.Tensor):
         slot.copy_(value)
     else:
-        slot.fill_(value)
+        slot.fill_(float(value))
 
 
 def _restart_from(generator: torch.Generator, restarts, offsets) -> None:
@@ -283,18 +266,16 @@ def _eager_on(x: torch.Tensor, said: list, what: str) -> bool:
 
 def k_steps(step: Callable) -> Callable:
     """``step(state, x)`` -> ``step(state, xs)`` over the K batches of
-    ``xs`` (module doc): a CUDA graph on the card, K eager steps on the CPU."""
-    graphed = GraphedStep(step)
-    said = []
+    ``xs`` (K, B, ...): K calls of ``one_step(step)``, each metric stacked
+    to (K,) (module doc)."""
+    single = one_step(step)
 
     def run(state, xs: torch.Tensor):
         if xs.dim() < 2 or xs.shape[0] < 1:
             raise ValueError(f"a K-step takes (K, B, ...) batches, K >= 1; got {tuple(xs.shape)}")
-        if not _eager_on(xs, said, "each K-step call runs K eager steps"):
-            return graphed(state, xs)
         rows = []
         for x in xs:
-            state, m = step(state, x)
+            state, m = single(state, x)
             rows.append(m)
         return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
 
@@ -320,10 +301,8 @@ def one_step(step: Callable) -> Callable:
         draws = None
         if args and (args[-1] is None or isinstance(args[-1], Mapping)):
             args, draws = args[:-1], args[-1]
-        scalars = [s.view(1) if isinstance(s, torch.Tensor) else [float(s)] for s in args]
-        draws = {n: torch.as_tensor(v, device=x.device)[None] for n, v in (draws or {}).items()}
-        state, m = graphed(state, x[None], *scalars, draws=draws)
-        return state, {k: v[0] for k, v in m.items()}
+        draws = {n: torch.as_tensor(v, device=x.device) for n, v in (draws or {}).items()}
+        return graphed(state, x, *args, draws=draws)
 
     run.eager = step
     run.graphed = graphed

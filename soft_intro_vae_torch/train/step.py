@@ -181,9 +181,8 @@ def build_train_steps(*, cfg: StepConfig, scan_steps: int = 1, input_lut=None,
     set of injected draws, and a failed capture raises; eager on the CPU and
     under gloo. ``.eager`` is the eager step itself. With ``scan_steps > 1``
     the signature becomes ``step(state, xs: (K, B, ...)) -> (state,
-    metrics: (K,) each)``, as the JAX scan's: K steps a call, a CUDA graph
-    replayed once a step on the card, eager steps on the CPU
-    (``train/graph.py k_steps``).
+    metrics: (K,) each)``, as the JAX scan's: K steps a call, each a call of
+    the one-step wrapper (``train/graph.py k_steps``).
 
     ``remat=True`` checkpoints each subnet forward (module doc); a graph
     then captures the recomputes inside its backward.

@@ -16,6 +16,10 @@ On the CPU the wrappers never reach the CUDA kernels; the kernels themselves
 are held to these plain functions on the card by ``chip_smoke.py``.
 """
 
+import collections
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -164,13 +168,14 @@ def test_bf16_keeps_its_type_and_stats_in_f32():
 def test_dispatch_on_cpu_never_reaches_the_kernels():
     x, arrays, kw = _args("noise", True)
     xt, rest = _port(x, arrays)
-    before = (adain_cuda.launches_fwd, adain_cuda.launches_bwd)
+    launches = cuda_build.launches
+    before = (launches["bias_act_norm_fwd"], launches["bias_act_norm_bwd"])
     auto = adain.bias_act_norm(xt, rest["bias"], rest["g"], rest["b"], rest["n"], rest["nw"], **kw)
     plain = adain.bias_act_norm(xt, rest["bias"], rest["g"], rest["b"], rest["n"], rest["nw"],
                                 impl="plain", **kw)
     for a, b in zip(auto, plain):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert (adain_cuda.launches_fwd, adain_cuda.launches_bwd) == before
+    assert (launches["bias_act_norm_fwd"], launches["bias_act_norm_bwd"]) == before
     with pytest.raises(ValueError, match="CUDA"):
         adain.bias_act_norm(xt, rest["bias"], impl="cuda")
     with pytest.raises(NotImplementedError):
@@ -205,6 +210,45 @@ def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
     src.write_text("// two\n")
     assert adain_cuda.library_path() != first
     assert first.startswith(cuda_build.BUILD_DIR)
+
+
+def test_a_failed_launch_raises_with_the_library_error_and_counts_nothing(monkeypatch):
+    """``Library.launch``, every kernel's launch: the entry point gets the
+    arguments and then the current stream's handle, inside the tensors'
+    device; a non-zero return raises with the library's own error string
+    and the caller's context, and is not counted."""
+    seen = []
+
+    class Entry:
+        def __init__(self, err):
+            self.err = err
+
+        def __call__(self, *args):
+            seen.append(args)
+            return self.err
+
+    class Standin:
+        good, bad = Entry(0), Entry(7)
+
+        @staticmethod
+        def standin_error_string(err):
+            return f"stand-in error {err}".encode()
+
+    devices = []
+    monkeypatch.setattr(torch.cuda, "device", lambda d: devices.append(d) or
+                        contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=99))
+    monkeypatch.setattr(cuda_build, "launches", collections.Counter())
+    monkeypatch.setattr(cuda_build, "_libraries", {})
+    lib = cuda_build.Library(lambda: ("standin.cu", "standin", ()), lambda lib: None, "standin")
+    lib._lib = Standin()
+    with pytest.raises(RuntimeError, match=r"standin launch failed: stand-in error 7 \(plan 3\)"):
+        lib.launch("standin", "bad", "cuda:1", 1, 2, context="plan 3")
+    assert not cuda_build.launches
+    lib.launch("standin", "good", "cuda:1", 4, context="plan 4")
+    assert seen == [(1, 2, 99), (4, 99)] and devices == ["cuda:1", "cuda:1"]
+    assert cuda_build.launches == {"standin": 1}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

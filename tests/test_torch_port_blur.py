@@ -311,10 +311,10 @@ def test_graphed_lod6_style_step_equals_eager_with_the_blur_kernel(cuda_device):
             step = one_step(intro) if graphed else intro
             graph.captured.clear()
             graph.replayed.clear()
-            before = blur_cuda.launches
+            before = cuda_build.launches["blur3x3"]
             ms = [step(state, x, 1.0)[1] for x in xs]
             torch.cuda.synchronize()
-            wrapper = blur_cuda.launches - before
+            wrapper = cuda_build.launches["blur3x3"] - before
             on_device = wrapper - graph.captured["blur3x3"] + graph.replayed["blur3x3"]
             assert on_device == (83 + 77) * steps, (graphed, wrapper, dict(graph.captured))
             if graphed:

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from soft_intro_vae_tpu.ops.chamfer_pallas import _nearest, chamfer_distance_pallas
-from soft_intro_vae_torch.ops import chamfer, chamfer_cuda
+from soft_intro_vae_torch.ops import chamfer, chamfer_cuda, cuda_build
 from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 
 # (B, N_preds, M_gts, pallas tile) — the cases of tests/test_chamfer_pallas.py
@@ -141,11 +141,11 @@ def test_zero_for_identical():
 
 def test_dispatch_on_cpu_never_reaches_the_kernel():
     preds, gts = (torch.tensor(c) for c in _clouds(2, 16, 16, 6))
-    before = chamfer_cuda.launches
+    before = cuda_build.launches["chamfer_nearest"]
     auto = chamfer.chamfer_distance(preds, gts, "auto")
     plain = chamfer.chamfer_distance(preds, gts, "plain")
     torch.testing.assert_close(auto, plain, rtol=0, atol=0)
-    assert chamfer_cuda.launches == before
+    assert cuda_build.launches["chamfer_nearest"] == before
     with pytest.raises(ValueError, match="CUDA"):
         chamfer.chamfer_distance(preds, gts, "cuda")
     with pytest.raises(NotImplementedError):

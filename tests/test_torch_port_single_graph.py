@@ -252,19 +252,19 @@ def test_trainer_sends_every_step_through_the_wrapper_and_drops_vanilla(kind, tm
 
 
 def test_a_graphs_key_tells_injected_draw_sets_apart():
-    xs = torch.zeros((1, B, 2))
-    z = torch.zeros((1, B, Z))
+    x = torch.zeros((B, 2))
+    z = torch.zeros((B, Z))
     keys = {
-        "none": graph.step_key(xs),
-        "empty": graph.step_key(xs, (), {}),
-        "eps": graph.step_key(xs, (), {"eps": z}),
-        "intro": graph.step_key(xs, (), {n: z for n in INTRO_NOISES}),
-        "intro reversed": graph.step_key(xs, (), {n: z for n in reversed(INTRO_NOISES)}),
-        "one draw": graph.step_key(xs, (), {"noise": z}),
-        "wider": graph.step_key(xs, (), {"eps": torch.zeros((1, B, Z + 1))}),
-        "float64": graph.step_key(xs, (), {"eps": z.double()}),
-        "a scalar": graph.step_key(xs, ([0.5],), {"eps": z}),
-        "another batch": graph.step_key(torch.zeros((1, B + 1, 2)), (), {"eps": z}),
+        "none": graph.step_key(x),
+        "empty": graph.step_key(x, (), {}),
+        "eps": graph.step_key(x, (), {"eps": z}),
+        "intro": graph.step_key(x, (), {n: z for n in INTRO_NOISES}),
+        "intro reversed": graph.step_key(x, (), {n: z for n in reversed(INTRO_NOISES)}),
+        "one draw": graph.step_key(x, (), {"noise": z}),
+        "wider": graph.step_key(x, (), {"eps": torch.zeros((B, Z + 1))}),
+        "float64": graph.step_key(x, (), {"eps": z.double()}),
+        "a scalar": graph.step_key(x, (0.5,), {"eps": z}),
+        "another batch": graph.step_key(torch.zeros((B + 1, 2)), (), {"eps": z}),
     }
     assert keys["none"] == keys["empty"]  # no draws: the generator's
     assert keys["intro"] == keys["intro reversed"]  # by name, not by order

@@ -108,7 +108,7 @@ def main(argv=None) -> int:
         print(f"torch_profile_image: soft_intro_vae_torch did not come from {root}", file=sys.stderr)
         return 1
     from soft_intro_vae_torch.data.images import DATASETS
-    from soft_intro_vae_torch.ops import u8norm_cuda
+    from soft_intro_vae_torch.ops import cuda_build
     from soft_intro_vae_torch.train import graph
     from soft_intro_vae_torch.train.image import ImageConfig, build_image_training
 
@@ -147,8 +147,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         ms_step = (time.perf_counter() - t0) * 1e3 / n
 
-        u8norm_cuda.launches = 0
-        replayed = graph.replayed["u8norm"]
+        called, replayed = cuda_build.launches["u8norm"], graph.replayed["u8norm"]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             t0 = time.perf_counter()
@@ -156,7 +155,8 @@ def main(argv=None) -> int:
                 intro_step(state, batches[i % 4])
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
-        u8_launches = u8norm_cuda.launches + graph.replayed["u8norm"] - replayed
+        u8_launches = (cuda_build.launches["u8norm"] - called
+                       + graph.replayed["u8norm"] - replayed)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         del state, intro_step
 
