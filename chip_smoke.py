@@ -13,11 +13,12 @@ Phases, each printing one line; any failure exits non-zero:
               version's, a library call's where one exists and the card's
               lower bound: the chamfer search, both directions in one
               launch (bit-equal, also on tie-heavy clouds), and the fused
-              bias/leaky-ReLU/instance-norm/AdaIN forward and backward in
-              every mode, f32 and bf16, at every LOD-6 site shape (each with
-              its launch plan; two launches bit-equal); the blur forward and
-              backward against F.conv2d's at every LOD-6 b32 plane, f32 and
-              bf16, bit-equal, timed at the two largest planes;
+              bias/leaky-ReLU/instance-norm/AdaIN forward and backward on
+              channels-last tensors in every mode, f32 and bf16, at every
+              LOD-6 site shape (each with its launch plan; two launches
+              bit-equal); the blur forward and backward on channels-last
+              tensors against F.conv2d's on NCHW copies at every LOD-6 b32
+              site, f32 and bf16, bit-equal, timed at the two largest sites;
   4. train 3d: ``train_soft_intro_vae_3d`` at the full width of
               configs/soft_intro_vae_hp.json (2048 points, batch 32, z 128) on
               synthetic clouds for one intro epoch plus the valid JSD, each
@@ -44,9 +45,10 @@ Phases, each printing one line; any failure exits non-zero:
               vanilla and one intro epoch, each step a replay of the epoch's
               CUDA graph after 3 eager warm-up steps and its capture; every
               kernel's launch count on the device read around it and held to
-              the count the steps imply, and the launches each capture
-              recorded to one step's (the blur's: 83 forward + 77 backward an
-              intro step);
+              the count the steps imply (one launch a call each way), and the
+              launches each capture recorded to one step's (the blur's: 83
+              forward + 77 backward an intro step); the norm's and the blur's
+              relayouts held to 0 (every input and gradient channels-last);
   6. step style: ms per LOD-6 eager intro step after warm-up; the first warm-up
               step records its fused-norm and blur launches by site, and each
               fused-norm site is
@@ -487,7 +489,8 @@ def _norm_inputs(gen, shape, mode, affine, dtype, device):
 
     bsz, ch, h, w = shape
     f32 = dict(generator=gen, device=device, dtype=torch.float32)
-    x = (2.0 * torch.randn(shape, **f32) + 0.3).to(dtype)
+    cl = torch.channels_last
+    x = (2.0 * torch.randn(shape, **f32) + 0.3).to(dtype).contiguous(memory_format=cl)
     args = dict(bias=torch.randn((ch,), **f32), g=None, b=None, n=None, nw=None)
     if affine:
         args["g"] = torch.randn((bsz, ch), **f32) + 1.0
@@ -495,8 +498,8 @@ def _norm_inputs(gen, shape, mode, affine, dtype, device):
     if mode == "noise":
         args["n"] = torch.randn((bsz, h, w), **f32)
         args["nw"] = torch.randn((ch,), **f32)
-    cot = dict(dy=torch.randn(shape, **f32).to(dtype), dm=torch.randn((bsz, ch), **f32),
-               dv=torch.randn((bsz, ch), **f32))
+    cot = dict(dy=torch.randn(shape, **f32).to(dtype).contiguous(memory_format=cl),
+               dm=torch.randn((bsz, ch), **f32), dv=torch.randn((bsz, ch), **f32))
     return x, args, cot
 
 
@@ -523,8 +526,8 @@ def plan_line(shape) -> str:
     for dtype in (torch.bfloat16, torch.float32):
         for direction in adain_cuda.DIRECTIONS:
             p = adain_cuda.plan(bsz, ch, h * w, dtype, direction)
-            parts.append(f"{str(dtype)[6:]} {direction} {p.tier} k={p.planes_per_cta} "
-                         f"G={p.lanes} Q={p.cluster} T={p.threads} E={p.slice} unit={p.unit} "
+            parts.append(f"{str(dtype)[6:]} {direction} unit={p.unit} R={p.rows} "
+                         f"threads={p.threads} chunk={p.chunk} P={p.pixels} T={p.tiles} "
                          f"smem={p.smem} grid={p.grid}")
     return f"plan {tuple(shape)}: " + "; ".join(parts)
 
@@ -582,6 +585,29 @@ def phase_norm_kernels(device):
                 for name, k, p, lp in zip(names, bk, bp, (low, False, False, False, False)):
                     note("bwd", _norm_err(f"backward {case} {name}", k, p, lp))
                 del x, a, cot, fk, fk2, fp, bk, bk2, bp
+
+    # planes of equal values, as the generator's first norm sees its expanded
+    # const (4x4, 512 channels): v = 0 and m = e at the image's first pixel
+    # exactly (in corr mode the card's expf may round e otherwise), y = b up
+    # to the rounding of m * a
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode in ("plain", "corr"):
+            xc = (2 * torch.randn((4, 512, 1, 1), generator=gen, device=device) + 0.3).expand(
+                4, 512, 4, 4).to(dtype).contiguous(memory_format=torch.channels_last)
+            bias = torch.randn(512, generator=gen, device=device)
+            g = torch.randn((4, 512), generator=gen, device=device) + 1.0
+            b = torch.randn((4, 512), generator=gen, device=device)
+            y, m, v = adain_cuda.forward(xc, bias, g, b, mode=mode, **kw)
+            e, _ = adain._producer(xc, bias, None, None, mode, kw["slope"], kw["corr_scale"])
+            case = f"planes of equal values, {mode} {dtype}"
+            check(torch.equal(v, torch.zeros_like(v)), f"{case}: v {float(v.abs().max())}")
+            check(mode != "plain" or torch.equal(m, e[:, :, 0, 0]), f"{case}: m is not e")
+            err = float((y.float() - b[:, :, None, None]).abs().max())
+            tol = float(4 * torch.finfo(torch.float32).eps * (m * torch.rsqrt(v + kw["eps"]) * g)
+                        .abs().max()) + (float(b.abs().max()) * 2 ** -8 if dtype != torch.float32
+                                         else 0.0)
+            check(err <= tol, f"{case}: max|y - b| {err:.3g} over {tol:.3g}")
+            del xc, bias, g, b, y, m, v, e
 
     # times at the decoder's top site in training (noise + AdaIN), 4x64x256x256
     shape = NORM_SHAPES[0]
@@ -719,24 +745,29 @@ def style_blur_launches(lod: int, vanilla: int, intro: int, remat: bool = False)
 
 
 def _blur_pair(x, dy, route):
-    """(y, dx) of the blur of x by ``route`` (``models/style.py blur3x3``'s impl),
-    dx through autograd: F.conv2d's own backward on the plain route."""
+    """(y, dx) of the blur of x: route "cuda", the nets' blur (``models/style.py
+    blur3x3``) on x and dy channels-last, dx through the kernel on dy; route
+    "plain", ATen's depthwise F.conv2d on NCHW copies, dx through its own
+    backward: the kernel's yardstick."""
     import torch
 
     from soft_intro_vae_torch.models.style import blur3x3
+    from soft_intro_vae_torch.ops import blur
 
-    xg = x.detach().requires_grad_(True)
-    y = blur3x3(xg, route)
-    (dx,) = torch.autograd.grad(y, xg, dy)
+    fmt = torch.channels_last if route == "cuda" else torch.contiguous_format
+    xg = x.contiguous(memory_format=fmt).detach().requires_grad_(True)
+    y = blur3x3(xg, route) if route == "cuda" else blur.blur3x3_plain(xg)
+    (dx,) = torch.autograd.grad(y, xg, dy.contiguous(memory_format=fmt))
     return y.detach(), dx
 
 
 def phase_blur(device, peaks):
-    """The blur kernel (forward; backward = the kernel on dy, ``flip``) against
-    F.conv2d's forward and its own input gradient (ATen's depthwise kernels)
-    at every LOD-6 b32 plane in f32 and bf16 and at BLUR_ODD, bit for bit, and
-    launch to launch; each order of the nine terms against the other
-    direction's ATen result, counted; device times at the two largest planes
+    """The blur kernel on channels-last tensors (forward; backward = the kernel
+    on dy, ``flip``) against F.conv2d's forward and its own input gradient
+    (ATen's depthwise kernels) on NCHW copies at every LOD-6 b32 site in f32
+    and bf16 and at BLUR_ODD, bit for bit, and launch to launch; each order
+    of the nine terms against the other direction's ATen result, counted;
+    device times at the two largest planes
     in bf16 against the bound (one read and one write an element), the plain
     route (blur3x3_plain on x, and on dy: the Function's plain backward) and
     F.conv2d's own backward (``library_ms``)."""
@@ -752,10 +783,13 @@ def phase_blur(device, peaks):
     for dtype in (torch.float32, torch.bfloat16):
         for shape in shapes:
             n = math.prod(shape)
-            # a contiguous view off a 16-byte boundary for the odd shapes
+            # a channels-last view off a 16-byte boundary for the odd shapes
             off = 1 if shape in BLUR_ODD else 0
-            x = torch.randn(n + off, generator=gen, device=device).to(dtype)[off:].view(shape)
-            dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+            bsz, ch, h, w = shape
+            x = torch.randn(n + off, generator=gen, device=device).to(dtype)[off:].view(
+                bsz, h, w, ch).permute(0, 3, 1, 2)
+            dy = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
+                memory_format=torch.channels_last)
             y, dx = _blur_pair(x, dy, "cuda")
             y_ref, dx_ref = _blur_pair(x, dy, "plain")
             y2 = blur_cuda.blur3x3_cuda(x)
@@ -771,10 +805,9 @@ def phase_blur(device, peaks):
             check(torch.equal(y, y2), f"blur {name}: two launches differ")
             crossed[name] = int((y_flip != y_ref).sum())
             if shape in BLUR_ODD or shape[1:] == (64, 256, 256):
-                p = blur_cuda.plan(shape[0] * shape[1], shape[2], shape[3], dtype)
-                plans.append(f"{name}: vec {p.vec}, rows {p.rows} x {p.strips} strips, "
-                             f"{p.planes} planes a CTA, {p.walkers} walkers x {p.runs} runs of "
-                             f"{p.run_rows}, {p.threads} threads, {p.smem} B, grid {p.grid}")
+                p = blur_cuda.plan(*shape, dtype)
+                plans.append(f"{name}: vec {p.vec}, {p.cols} pixels x bands of {p.rows} rows, "
+                             f"{p.threads} threads, {p.smem} B, grid {p.grid}")
             del x, dy, y, dx, y_ref, dx_ref, y2, y_flip
     torch.cuda.empty_cache()
 
@@ -784,20 +817,23 @@ def phase_blur(device, peaks):
         shape = (BLUR_BATCH, c, side, side)
         x = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
         dy = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        x_cl, dy_cl = (t.contiguous(memory_format=torch.channels_last) for t in (x, dy))
         xg = x.clone().requires_grad_(True)
         y_lib = blur.blur3x3_plain(xg)
+        # the plain route and the library on NCHW (ATen's depthwise kernels),
+        # the kernel channels-last
         calls = {"plain_fwd": lambda: blur.blur3x3_plain(x),
                  "plain_bwd": lambda: blur.blur3x3_plain(dy),
                  "library_bwd": lambda: torch.autograd.grad(y_lib, xg, dy, retain_graph=True),
-                 "fwd": lambda: blur_cuda.blur3x3_cuda(x),
-                 "bwd": lambda: blur_cuda.blur3x3_cuda(dy, flip=True)}
+                 "fwd": lambda: blur_cuda.blur3x3_cuda(x_cl),
+                 "bwd": lambda: blur_cuda.blur3x3_cuda(dy_cl, flip=True)}
         t = {k: [] for k in calls}
         for turn in (plain, kernel, kernel, plain):
             for k in turn:
                 t[k].append(device_ms(calls[k]))
         times[shape] = {k: sum(v) / len(v) for k, v in t.items()} | {
             "runs": t, "bound": 2 * x.numel() * x.element_size() / peaks[1] * 1e3}
-        del x, dy, xg, y_lib, calls
+        del x, dy, x_cl, dy_cl, xg, y_lib, calls
     torch.cuda.empty_cache()
     path = cuda_build.library_path(*blur_cuda.spec())
     top_shape = (BLUR_BATCH, BLUR_PLANES[0][0], BLUR_PLANES[0][1], BLUR_PLANES[0][1])
@@ -847,11 +883,23 @@ def phase_blur(device, peaks):
 KERNELS = ("chamfer_nearest", "bias_act_norm_fwd", "bias_act_norm_bwd", "u8norm", "blur3x3")
 
 
+def relayouts() -> dict:
+    """The style kernels' relayouts (ops/adain.py, ops/blur.py): copies of a
+    norm or blur input or gradient into channels-last, by kernel and tensor."""
+    from soft_intro_vae_torch.ops import adain, blur
+
+    return {f"{name}.{k}": v for name, counter in (("norm", adain.relayouts),
+                                                    ("blur", blur.relayouts))
+            for k, v in counter.items() if v}
+
+
 def reset_counts() -> None:
-    from soft_intro_vae_torch.ops import cuda_build
+    from soft_intro_vae_torch.ops import adain, blur, cuda_build
     from soft_intro_vae_torch.parallel import collectives
     from soft_intro_vae_torch.train import graph
 
+    adain.relayouts.clear()
+    blur.relayouts.clear()
     cuda_build.launches.clear()
     collectives.calls.clear()
     graph.captured.clear()
@@ -1417,6 +1465,8 @@ def phase_style_train(device, card: str, results_dir: str):
           f"fused-norm launches {counts}, expected forward {want_fwd}, backward {want_bwd}")
     check(counts["chamfer_nearest"] == counts["u8norm"] == 0,
           f"the style path launched chamfer or u8norm: {counts}")
+    check(not relayouts(), f"the style main path copied tensors into channels-last: "
+          f"{relayouts()}")
     want_blur = sum(style_blur_launches(cfg.layer_count - 1, steps, steps))
     check(counts["blur3x3"] == want_blur,
           f"blur launches {counts['blur3x3']} on the device, expected {want_blur}")
@@ -1442,8 +1492,9 @@ def phase_style_train(device, card: str, results_dir: str):
           f"{counts['bias_act_norm_bwd']} (expected {want_fwd} / {want_bwd}; each epoch 3 eager "
           f"warm-up steps, a graph capture recording {per_graph[0]} vanilla and {per_graph[1]} "
           f"intro launches, replays); blur3x3 launches on the device {counts['blur3x3']} "
-          f"(expected {want_blur}; captures {blur_per_graph}); peak device memory "
-          f"{peak_gb:.2f} GB; on {card}",
+          f"(expected {want_blur}; captures {blur_per_graph}); one launch a call each way; "
+          f"relayouts {sum(relayouts().values())} (every norm and blur input and gradient "
+          f"channels-last); peak device memory {peak_gb:.2f} GB; on {card}",
           flush=True)
     return cfg, counts
 
@@ -1729,13 +1780,14 @@ def phase_style_transition(device, results_dir: str):
     """LODs 0 -> 1 with a blended epoch: EPOCHS_PER_LOD 2, TRAIN_EPOCHS 3, 4
     steps of batch 128 an epoch, so each of the three (LOD, blended, phase)
     graphs is captured after its 3 warm-up steps and replayed; then the same
-    run with the steps eager: every tensor bit-equal under exact routes, and
-    the peak device memory of both."""
+    run with the steps eager: every tensor bit-equal under exact routes, no
+    relayout, and the peak device memory of both."""
     import torch
 
     from soft_intro_vae_torch.train import style
     from soft_intro_vae_torch.utils.checkpoint import to_host
 
+    reset_counts()
     cfg = style_config(device, results_dir, STYLE_TRANSITION_OPTS)
     runs, peaks, seconds = [], [], []
     one_step = style.one_step
@@ -1774,6 +1826,7 @@ def phase_style_transition(device, results_dir: str):
           f"transition: {summary['blended_steps']} blended of {summary['steps']} steps, "
           f"expected {epoch2}")
     check(all(math.isfinite(v) for v in last.values()), f"non-finite metrics: {last}")
+    check(not relayouts(), f"the blended path copied tensors into channels-last: {relayouts()}")
     check(count == epoch2, f"optimizer not reset on the LOD switch: count {count}")
     print(f"transition style: epochs 0-1 at LOD 0 (4x4), epoch 2 at LOD 1 (8x8) "
           f"blended in {summary['blended_steps']} steps of batch 128, optimizer reset on the "

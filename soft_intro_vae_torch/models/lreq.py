@@ -10,7 +10,10 @@ PyTorch layouts: Linear weight (out, in), conv weight (out, in, kh, kw),
 transposed-conv weight (in, out, kh, kw); a depthwise weight is (in, 1, kh, kw)
 for both directions. ``dtype`` is the compute type of
 the conv path: inputs and scaled weights are cast to it, as ``dtype=`` does
-in the JAX layers; parameters stay float32.
+in the JAX layers; parameters stay float32. The convolutions hand their
+scaled weights over channels-last, so cuDNN runs them in NHWC (the style
+nets' activations' layout) whatever the input's layout, and returns
+channels-last; the parameters keep their own layout.
 """
 
 from __future__ import annotations
@@ -47,6 +50,12 @@ class LreqDense(nn.Module):
         return F.linear(x.to(self.dtype), (self.weight * self.std).to(self.dtype), bias)
 
 
+def _scaled(w: Tensor, std: float, dtype: torch.dtype) -> Tensor:
+    """The conv weight as the layer computes with it: w * std in ``dtype``,
+    channels-last (the cast and the layout in one pass)."""
+    return (w * std).to(dtype, memory_format=torch.channels_last)
+
+
 def box_transform(w: Tensor) -> Tensor:
     """The fused-downscale kernel (lreq.py:158-160): 0.25 x the four shifted
     copies of the zero-padded kernel, k x k -> (k+1) x (k+1)."""
@@ -79,7 +88,7 @@ class LreqConv2d(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         w = box_transform(self.weight) if self.transform_kernel else self.weight
         bias = self.bias.to(self.dtype) if self.bias is not None else None
-        return F.conv2d(x.to(self.dtype), (w * self.std).to(self.dtype), bias,
+        return F.conv2d(x.to(self.dtype), _scaled(w, self.std, self.dtype), bias,
                         stride=self.stride, padding=self.padding)
 
 
@@ -100,7 +109,7 @@ class LreqConvTranspose2d(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         w = shift_sum_transform(self.weight) if self.transform_kernel else self.weight
-        return F.conv_transpose2d(x.to(self.dtype), (w * self.std).to(self.dtype),
+        return F.conv_transpose2d(x.to(self.dtype), _scaled(w, self.std, self.dtype),
                                   stride=self.stride, padding=self.padding)
 
 

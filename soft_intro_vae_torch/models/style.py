@@ -13,13 +13,19 @@ EncoderWithFC, the same with an ``fc2`` head (JAX models/style.py:161-168,
 ``convert_style_encoder``/``convert_style_generator``/``convert_mapping``
 (soft_intro_vae_tpu/utils/torch_compat.py:264-321) read them.
 
-Layout NCHW. Every norm site goes through ``ops/adain.bias_act_norm`` and
-every [1,2,1] blur (net.py:49-60) through ``blur3x3`` (``ops/blur.py``): the
-hand-written CUDA kernels for CUDA tensors, the plain versions on the CPU
-(``norm_impl="plain"`` forces the plain versions of both, to compare the two
-routes on the card). ``dtype`` is the conv path's compute type (bfloat16 in
-configs/ffhq256.yaml); the style heads, moments, mappings and ToRGB's output
-stay float32, as in the JAX package.
+Layout: the tensors keep their logical (B, C, H, W) shapes and run
+channels-last (NHWC in memory, the JAX package's layout) from the input to
+the losses: the convolutions hand cuDNN channels-last weights, the
+generator's const is made channels-last once a pass, and the resampling keeps
+the layout, so no convolution, norm or blur sees NCHW (the parameters and
+checkpoints keep their own layout). Every norm site goes through
+``ops/adain.bias_act_norm`` and every [1,2,1] blur (net.py:49-60) through
+``blur3x3`` (``ops/blur.py``): the hand-written CUDA kernels for CUDA
+tensors, the plain versions on the CPU (``norm_impl="plain"`` forces the
+plain versions of both, to compare the two routes on the card); their
+``relayouts`` counters read 0 on this layout. ``dtype`` is the conv path's
+compute type (bfloat16 in configs/ffhq256.yaml); the style heads, moments,
+mappings and ToRGB's output stay float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,8 +39,7 @@ import torch.nn.functional as F
 
 from soft_intro_vae_torch.models.lreq import LreqConv2d, LreqConvTranspose2d, LreqDense
 from soft_intro_vae_torch.ops.adain import bias_act_norm
-from soft_intro_vae_torch.ops.blur import Blur3x3, blur3x3_plain
-from soft_intro_vae_torch.ops.cuda_build import use_kernel
+from soft_intro_vae_torch.ops.blur import blur3x3
 from soft_intro_vae_torch.parallel.mesh import randn_rows
 
 Tensor = torch.Tensor
@@ -47,14 +52,14 @@ def pixel_norm(x: Tensor, epsilon: float = 1e-8) -> Tensor:
 
 def style_mod(x: Tensor, style: Tensor) -> Tensor:
     """AdaIN, x * (s0 + 1) + s1 with style (B, 2C) (net.py:32-34; JAX
-    models/style.py:38-42), NCHW. The style is cast to x's type first. The
+    models/style.py:38-42), x (B, C, H, W). The style is cast to x's type first. The
     nets' norm sites apply it inside ``ops/adain.bias_act_norm``."""
     s = style.reshape(style.shape[0], 2, x.shape[1]).to(x.dtype)
     return x * (s[:, 0, :, None, None] + 1.0) + s[:, 1, :, None, None]
 
 
 def instance_norm(x: Tensor, eps: float) -> Tensor:
-    """Instance norm over H, W of an NCHW tensor (JAX models/style.py:73-79):
+    """Instance norm over H, W of a (B, C, H, W) tensor (JAX models/style.py:73-79):
     two-pass statistics in float32 whatever x's type, the result cast back.
     The nets' norm sites take one-pass moments inside ``ops/adain``."""
     xf = x.float()
@@ -64,26 +69,16 @@ def instance_norm(x: Tensor, eps: float) -> Tensor:
 
 
 def upscale2d(x: Tensor, factor: int = 2) -> Tensor:
-    """Nearest-neighbour upscale (F.interpolate's default, net.py:570)."""
+    """Nearest-neighbour upscale (F.interpolate's default, net.py:570), made
+    on the (B, H, W, C) view, so the result is channels-last."""
     b, c, h, w = x.shape
-    x = x[:, :, :, None, :, None].expand(b, c, h, factor, w, factor)
-    return x.reshape(b, c, h * factor, w * factor)
+    x = x.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(b, h, factor, w, factor, c)
+    return x.reshape(b, h * factor, w * factor, c).permute(0, 3, 1, 2)
 
 
 def downscale2d(x: Tensor, factor: int = 2) -> Tensor:
+    """The box downscale; keeps x's layout."""
     return F.avg_pool2d(x, factor, factor)
-
-
-def blur3x3(x: Tensor, impl: str = "auto") -> Tensor:
-    """Depthwise [1,2,1] x [1,2,1] / 16 blur (net.py:49-60), in x's type.
-    ``impl="auto"`` launches the hand-written kernel (``ops/blur.py``) on a
-    CUDA tensor and runs the plain version, ``F.conv2d``, on a CPU tensor;
-    ``"plain"`` forces the plain version (comparisons only); ``"cuda"`` needs
-    a CUDA tensor (``ops/cuda_build.py use_kernel``). A CUDA tensor launches
-    the kernel or raises, and never falls back."""
-    if use_kernel(impl, x, "blur"):
-        return Blur3x3.apply(x, "cuda")
-    return blur3x3_plain(x)
 
 
 def blend_lerp(prev: Tensor, x: Tensor, blend: Union[float, Tensor]) -> Tensor:
@@ -318,7 +313,8 @@ class StyleGenerator(nn.Module):
 
     def forward(self, styles: Tensor, lod: int, blend: Optional[Union[float, Tensor]] = None,
                 noise_mode: str = "batch", generator: Optional[torch.Generator] = None) -> Tensor:
-        x = self.const.expand(styles.shape[0], -1, -1, -1)
+        x = self.const.expand(styles.shape[0], -1, -1, -1).contiguous(
+            memory_format=torch.channels_last)
         last = lod if blend is None else lod - 1
         for i in range(last + 1):
             x = self.decode_block[i](x, styles[:, 2 * i], styles[:, 2 * i + 1], noise_mode,

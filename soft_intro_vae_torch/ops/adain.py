@@ -1,10 +1,13 @@
 """Fused bias + leaky ReLU + instance norm (+ AdaIN) (port of ops/adain_pallas.py).
 
 The norm site of every EncodeBlock and DecodeBlock (reference
-style_soft_intro_vae/net.py:97-181) on the conv output x (B, C, H, W):
+style_soft_intro_vae/net.py:97-181) on the conv output x (B, C, H, W),
+channels-last:
 
     e    = leaky_relu(x + inject + bias, slope)
-    m, v = per-(b, c) spatial moments of e, one pass in f32: v = max(E[e^2] - m^2, 0)
+    m, v = per-(b, c) spatial moments of e, one pass in f32 about e0, e at the
+           image's first pixel: d = E[e - e0], m = e0 + d,
+           v = max(E[(e - e0)^2] - d^2, 0)
     y    = (e - m) * rsqrt(v + eps) * g + b           (g, b: AdaIN, decoder only)
 
 with inject = nothing (mode "plain", encoder), nw * n (mode "noise", decoder
@@ -16,14 +19,18 @@ Two implementations of one function:
   * ``bias_act_norm_plain`` / ``bias_act_norm_backward_plain``: PyTorch ops,
     the semantics of the JAX package's ``reference_bias_act_norm`` and the
     backward written out step by step as ``_bwd_pallas`` computes it (not
-    taken from autograd). They are the CPU path and the kernels' twins.
+    taken from autograd), on either layout. They are the CPU path and the
+    kernels' twins.
   * the CUDA kernels of ``ops/adain_cuda.py`` (one launch each way).
 
 ``bias_act_norm`` dispatches on where x lies (``ops/cuda_build.py
 use_kernel``): the kernels for CUDA tensors,
 the plain functions for CPU tensors. ``impl="plain"`` forces the plain
 functions (to compare the two routes on the card); a CUDA tensor otherwise
-launches the kernel or raises, and never falls back.
+launches the kernel or raises, and never falls back. Both routes run
+channels-last (the kernels take nothing else): an x or dy in another layout
+is copied once and counted in ``relayouts`` (by "x" and "dy"), which the
+style nets' main path keeps at 0.
 
 Compute type: f32 for f32 and bf16 inputs (y is returned in x's type), f64
 for f64 inputs on the plain path, which ``torch.autograd.gradcheck`` uses.
@@ -31,6 +38,7 @@ for f64 inputs on the plain path, which ``torch.autograd.gradcheck`` uses.
 
 from __future__ import annotations
 
+import collections
 from typing import Optional, Tuple
 
 import torch
@@ -39,6 +47,9 @@ from soft_intro_vae_torch.ops import adain_cuda, cuda_build
 
 Tensor = torch.Tensor
 MODES = tuple(adain_cuda.MODES)
+
+# copies of a norm's input or output gradient into channels-last, by "x" and "dy"
+relayouts: collections.Counter = collections.Counter()
 
 
 def _compute_dtype(x: Tensor) -> torch.dtype:
@@ -76,8 +87,13 @@ def bias_act_norm_plain(x: Tensor, bias: Tensor, g: Optional[Tensor] = None,
     """(y, m, v) of the fused chain in plain PyTorch ops (reference_bias_act_norm)."""
     ct = _compute_dtype(x)
     e, _ = _producer(x, bias, n, nw, mode, slope, corr_scale)
-    m = e.mean(dim=(2, 3))
-    v = torch.clamp((e * e).mean(dim=(2, 3)) - m * m, min=0.0)
+    # moments about e0, as the kernels take them: a plane of equal values
+    # gives m = e0 and v = 0 exactly
+    e0 = e[:, :, :1, :1]
+    ec = e - e0
+    d = ec.mean(dim=(2, 3))
+    m = e0[:, :, 0, 0] + d
+    v = torch.clamp((ec * ec).mean(dim=(2, 3)) - d * d, min=0.0)
     rstd = torch.rsqrt(v + eps)
     if g is not None:
         a = rstd * g.to(ct)
@@ -140,6 +156,8 @@ class BiasActNorm(torch.autograd.Function):
         else:
             y, m, v = bias_act_norm_plain(x, bias, g, b, n, nw, **kw)
         ctx.save_for_backward(x, bias, g, n, nw, m, v)
+        # an output nothing reads gets None, not autograd's NCHW zeros (below)
+        ctx.set_materialize_grads(False)
         ctx.kw = kw
         ctx.use_kernel = use_kernel
         return y, m, v
@@ -147,9 +165,11 @@ class BiasActNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dm, dv):
         x, bias, g, n, nw, m, v = ctx.saved_tensors
-        dy = dy.to(x.dtype).contiguous()
-        dm = dm.to(m.dtype).contiguous()
-        dv = dv.to(v.dtype).contiguous()
+        # the zeros of an unread output, in x's layout (an encoder's last y)
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype)
+        dy = cuda_build.channels_last(dy, relayouts, "dy")
+        dm = torch.zeros_like(m) if dm is None else dm.to(m.dtype).contiguous()
+        dv = torch.zeros_like(v) if dv is None else dv.to(v.dtype).contiguous()
         if ctx.use_kernel:
             dx, dbst, dg, dbias_p, dnw_p = adain_cuda.backward(dy, x, bias, g, n, nw, m, v,
                                                               dm, dv, **ctx.kw)
@@ -168,9 +188,11 @@ def bias_act_norm(x: Tensor, bias: Tensor, g: Optional[Tensor] = None,
                   nw: Optional[Tensor] = None, *, mode: str = "plain", eps: float = 1e-8,
                   slope: float = 0.2, corr_scale: float = 1.0, impl: str = "auto"
                   ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Fused producer + IN (+ AdaIN) over NCHW ``x``; returns (y, m, v).
+    """Fused producer + IN (+ AdaIN) over ``x``; returns (y, m, v), y
+    channels-last.
 
-    x: (B, C, H, W) conv output before its bias. bias: (C,). For AdaIN pass
+    x: (B, C, H, W) conv output before its bias, channels-last (another
+    layout is copied, a relayout). bias: (C,). For AdaIN pass
     g = s0 + 1 and b = s1 as (B, C); omit both for the encoder's plain
     instance norm. mode "noise" takes n (B, H, W) and nw (C,); mode "corr"
     takes corr_scale = sqrt(layer + 1). Gradients reach x, bias, g, b and nw.
@@ -189,5 +211,6 @@ def bias_act_norm(x: Tensor, bias: Tensor, g: Optional[Tensor] = None,
 
     if mode != "noise":
         n = nw = None
-    return BiasActNorm.apply(x.contiguous(), side(bias), side(g), side(b), side(n), side(nw),
+    x = cuda_build.channels_last(x, relayouts, "x")
+    return BiasActNorm.apply(x, side(bias), side(g), side(b), side(n), side(nw),
                              mode, float(eps), float(slope), float(corr_scale), use_kernel)

@@ -9,10 +9,13 @@ never at import, in one ``nvcc`` round with the blur's library
 (``cuda_build.BUILT_TOGETHER``); the launches count under
 ``bias_act_norm_fwd`` and ``bias_act_norm_bwd``.
 
-Layout NCHW: x (B, C, H, W) in float32 or bfloat16, n (B, H, W) f32, bias and
-nw (C,) f32, g and b (B, C) f32, all contiguous on one device. The wrappers
-check that and raise on anything the kernels do not take; they launch on the
-current stream and do not synchronise.
+Layout NHWC: x a channels-last (B, C, H, W) tensor in float32 or bfloat16, n
+(B, H, W) f32, bias and nw (C,) f32, g and b (B, C) f32, all contiguous on
+one device. The wrappers check that and raise on anything the kernels do not
+take; they launch on the current stream and do not synchronise. The items of
+a launch meet through an int32 buffer of counters (``_flags``), zeroed once
+and left usable by every launch; launches share a buffer only with the
+launches of their own stream, which run one after another.
 
 ``plan`` picks each launch's shape from (B, C, S, dtype, direction) alone, in
 plain Python so that the CPU tests can hold it to its invariants; the C entry
@@ -25,11 +28,12 @@ import ctypes
 import dataclasses
 import math
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from soft_intro_vae_torch.ops import cuda_build
+from soft_intro_vae_torch.ops.cuda_build import H100_SMS
 from soft_intro_vae_torch.ops.cuda_build import SM90_SMEM as BLOCK_SMEM
 
 Tensor = torch.Tensor
@@ -44,13 +48,13 @@ DIRECTIONS = ("fwd", "bwd")
 # Launch-plan limits; csrc/bias_act_norm.cu keeps the same numbers and checks them.
 STATIC_SMEM = 1024           # bound on the kernels' static shared memory
 MAX_DYNAMIC_SMEM = BLOCK_SMEM - STATIC_SMEM
-MAX_THREADS = 512
-MAX_CLUSTER = 8              # the portable cluster size
-SMALL_SIZE = 256             # planes of at most this many elements share a CTA
-SMALL_THREADS = 128
-# Chosen on the card with tools/torch_norm_plans.py (PERF.md):
-STAGE_TARGET = 64 * 1024     # staged bytes per CTA the cluster size aims at
-UNITS_PER_THREAD = 8         # 16-byte units a thread takes per pass, where the slice allows
+MAX_THREADS = 256
+MAX_IMAGES = 65536
+UNIT = 4                     # channels a thread takes a step, where C * bytes(T) % 16 == 0
+CHUNK_BYTES = 32 * 1024      # staged bytes a chunk, a slot of the ring (at least one pixel)
+TILE_BYTES = 256 * 1024      # staged bytes a tile aims at
+CTAS_PER_SM = 3              # the kernels' __launch_bounds__
+ITEMS_PER_SLOT = 2           # the fewest items a launch has for each CTA the card holds
 
 
 def spec() -> cuda_build.Spec:
@@ -60,9 +64,9 @@ def spec() -> cuda_build.Spec:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bias_act_norm_fwd.argtypes = [p] * 9 + [i] * 6 + [i] * 8 + [f] * 4 + [p]
+    lib.bias_act_norm_fwd.argtypes = [p] * 11 + [i] * 6 + [i] * 8 + [f] * 4 + [p]
     lib.bias_act_norm_fwd.restype = ctypes.c_int
-    lib.bias_act_norm_bwd.argtypes = [p] * 15 + [i] * 6 + [i] * 8 + [f] * 5 + [p]
+    lib.bias_act_norm_bwd.argtypes = [p] * 17 + [i] * 6 + [i] * 8 + [f] * 5 + [p]
     lib.bias_act_norm_bwd.restype = ctypes.c_int
 
 
@@ -80,42 +84,42 @@ def load() -> ctypes.CDLL:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One launch's shape (the source's header explains the tiers).
+    """One launch's shape (the source's header explains the items).
 
-    tier: "small" (k planes per CTA, G <= 32 lanes each), "plane" (one CTA
-    per plane) or "cluster" (Q CTAs per plane); planes_per_cta k; lanes G,
-    threads per plane (k * G == threads); cluster Q; slice E, elements of a
-    plane one CTA stages (S unless Q > 1); unit, elements a thread takes per
-    step (16 bytes' worth where every CTA's run is 16-byte aligned, else 1);
-    smem, dynamic shared bytes (the staged runs); grid, CTAs.
+    unit, channels a thread takes a step (UNIT where every pixel's run is 16
+    bytes' worth, else 1); rows R, threads a unit (threads = R * C / unit);
+    chunk, pixels a slot of the two-slot ring stages; pixels P, pixels a
+    tile, a contiguous run of P * C elements; tiles T an image; smem, dynamic
+    shared bytes (two slots of a chunk's arrays and noise run, the sums'
+    scratch); grid, CTAs: 2 * B * T, a sums and an apply item a tile.
     """
 
-    tier: str
-    planes_per_cta: int
-    lanes: int
-    cluster: int
-    threads: int
-    slice: int
     unit: int
+    rows: int
+    threads: int
+    chunk: int
+    pixels: int
+    tiles: int
     smem: int
     grid: int
 
     def args(self) -> Tuple[int, ...]:
-        """The plan in the C entry points' order (k, lanes, cluster, threads,
-        slice, unit, smem, grid)."""
-        return (self.planes_per_cta, self.lanes, self.cluster, self.threads, self.slice,
-                self.unit, self.smem, self.grid)
+        """The plan in the C entry points' order."""
+        return dataclasses.astuple(self)
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def plan(bsz: int, ch: int, size: int, dtype: torch.dtype, direction: str) -> Plan:
-    """The launch plan of one kernel call on x (bsz, ch, S = size) of ``dtype``.
-
-    Raises ValueError for a plane too large to stage in a cluster of
-    MAX_CLUSTER CTAs (beyond ~925K bf16 elements forward, ~231K f32 backward).
+def plan(bsz: int, ch: int, size: int, dtype: torch.dtype, direction: str,
+         sms: int = H100_SMS) -> Plan:
+    """The launch plan of one kernel call on x (bsz, ch, S = size) of ``dtype``
+    on a card of ``sms`` SMs: chunks of as many pixels as fit CHUNK_BYTES of
+    staged arrays; tiles of about TILE_BYTES, more where the launch would
+    give the card's CTA slots fewer than ITEMS_PER_SLOT items each, but no
+    more tiles than chunks. Raises ValueError for more than MAX_THREADS units of
+    channels (1024 channels) or more than MAX_IMAGES images.
     """
     if direction not in DIRECTIONS:
         raise ValueError(f"direction must be one of {DIRECTIONS}, got {direction!r}")
@@ -123,31 +127,27 @@ def plan(bsz: int, ch: int, size: int, dtype: torch.dtype, direction: str) -> Pl
         raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
     if min(bsz, ch, size) <= 0:
         raise ValueError(f"empty shape: B {bsz}, C {ch}, S {size}")
+    if bsz > MAX_IMAGES:
+        raise ValueError(f"{bsz} images: the kernels take at most {MAX_IMAGES}")
     es = _ELEM_BYTES[dtype]
     arrays = 1 if direction == "fwd" else 2  # x; x and dy
-    planes = bsz * ch
-    unit = 16 // es if size * es % 16 == 0 else 1
-    if size <= SMALL_SIZE:
-        lanes = min(32, 1 << ((size // unit).bit_length() - 1))
-        k = SMALL_THREADS // lanes
-        return Plan("small", k, lanes, 1, SMALL_THREADS, size, unit,
-                    arrays * _round_up(k * size * es, 16), -(-planes // k))
-
-    def slice_for(q: int) -> int:
-        return _round_up(-(-size // q), unit)
-
-    cluster = 1
-    while cluster < MAX_CLUSTER and arrays * slice_for(cluster) * es > STAGE_TARGET:
-        cluster *= 2
-    slc = slice_for(cluster)
-    smem = arrays * _round_up(slc * es, 16)
-    if smem > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"a plane of {size} {dtype} elements does not fit {MAX_CLUSTER} CTAs' "
-                         f"shared memory in the {direction} kernel ({smem} bytes per CTA)")
-    want = -(-(slc // unit) // UNITS_PER_THREAD)
-    threads = min(MAX_THREADS, max(32, 1 << (want - 1).bit_length()))
-    return Plan("plane" if cluster == 1 else "cluster", 1, threads, cluster, threads, slc, unit,
-                smem, planes * cluster)
+    unit = UNIT if ch * es % 16 == 0 else 1
+    units = ch // unit
+    if units > MAX_THREADS:
+        raise ValueError(f"{ch} channels of {dtype} need {units} threads a pixel, more than "
+                         f"{MAX_THREADS}")
+    rows = MAX_THREADS // units
+    threads = rows * units
+    pixel_bytes = arrays * ch * es
+    chunk = min(size, max(1, CHUNK_BYTES // pixel_bytes))
+    tiles = max(-(-size * pixel_bytes // TILE_BYTES),
+                -(-ITEMS_PER_SLOT * CTAS_PER_SM * sms // (2 * bsz)))
+    tiles = min(tiles, -(-size // chunk))
+    pixels = -(-size // tiles)
+    tiles = -(-size // pixels)
+    smem = (2 * (arrays * _round_up(chunk * ch * es, 16) + _round_up(chunk, 4) * 4)
+            + 2 * unit * threads * 4)
+    return Plan(unit, rows, threads, chunk, pixels, tiles, smem, 2 * bsz * tiles)
 
 
 def corr_constants(corr_scale: float) -> Tuple[float, float, float]:
@@ -169,6 +169,10 @@ def _check(name: str, t: Optional[Tensor], shape, device, dtype=torch.float32) -
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_activation(name: str, t: Tensor, shape, device, dtype) -> None:
+    _check(name, t.permute(0, 2, 3, 1), (shape[0], shape[2], shape[3], shape[1]), device, dtype)
+
+
 def _check_common(x: Tensor, bias, g, n, nw, mode: str) -> Tuple[int, int, int]:
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got device {x.device}")
@@ -176,8 +180,8 @@ def _check_common(x: Tensor, bias, g, n, nw, mode: str) -> Tuple[int, int, int]:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or x.numel() == 0:
         raise ValueError(f"x must be a non-empty (B, C, H, W) tensor, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous (NCHW)")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("x must be channels-last (NHWC in memory)")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     bsz, ch, h, w = x.shape
@@ -195,61 +199,90 @@ def _ptr(t: Optional[Tensor]):
 
 
 def _aligned(t: Optional[Tensor]) -> Optional[Tensor]:
-    """t, or a fresh (16-byte aligned) copy where a view starts off 16 bytes:
-    the kernels' bulk copies and 16-byte loads need aligned bases."""
+    """t, or a fresh (16-byte aligned) copy in its layout where a view starts
+    off 16 bytes: the kernels' bulk copies and vector loads need aligned bases."""
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+_FLAGS: Dict[Tuple[torch.device, int], Tensor] = {}
+
+
+def _flags(device: torch.device, stream: int) -> Tensor:
+    """The counters (2 + 3 * MAX_IMAGES int32) of the launches on ``stream``
+    (the raw stream handle) of ``device``, zeroed once; every launch leaves
+    them usable by the next (the source's header). Two streams never share
+    counters, so launches that may overlap never meet in them. A stream's
+    first launch must run eagerly: a buffer made under a CUDA graph's capture
+    would belong to the graph's memory pool."""
+    flags = _FLAGS.get((device, stream))
+    if flags is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the fused-norm kernels' first launch on a stream is being "
+                               "captured: run one call on that stream eagerly first")
+        flags = _FLAGS.setdefault((device, stream), torch.zeros(
+            2 + 3 * MAX_IMAGES, dtype=torch.int32, device=device))
+    return flags
+
+
+def _stream_flags(x: Tensor) -> Tensor:
+    """The counters of the current stream of x's device."""
+    return _flags(x.device, torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def forward(x: Tensor, bias: Tensor, g: Optional[Tensor] = None, b: Optional[Tensor] = None,
             n: Optional[Tensor] = None, nw: Optional[Tensor] = None, *, mode: str = "plain",
             eps: float = 1e-8, slope: float = 0.2, corr_scale: float = 1.0
             ) -> Tuple[Tensor, Tensor, Tensor]:
-    """(y, mean, var): y like x, mean and var (B, C) f32. One kernel launch,
-    shaped by ``plan(B, C, H*W, x.dtype, "fwd")``."""
+    """(y, mean, var): y like x (channels-last), mean and var (B, C) f32. One
+    kernel launch, shaped by ``plan(B, C, H*W, x.dtype, "fwd")``."""
     bsz, ch, size = _check_common(x, bias, g, n, nw, mode)
     if (g is None) != (b is None):
         raise ValueError("g and b come together (AdaIN) or not at all")
     if b is not None:
         _check("b", b, (bsz, ch), x.device)
-    pl = plan(bsz, ch, size, x.dtype, "fwd")
+    pl = plan(bsz, ch, size, x.dtype, "fwd", cuda_build.sm_count(x.device))
     x = _aligned(x)
     n = _aligned(n) if mode == "noise" else None
     y = torch.empty_like(x)
-    mean = torch.empty((bsz, ch), dtype=torch.float32, device=x.device)
-    var = torch.empty_like(mean)
+    stats = torch.empty((2, bsz, ch), dtype=torch.float32, device=x.device)
+    part = torch.empty((bsz * pl.tiles, 2 * ch), dtype=torch.float32, device=x.device)
     ks, c2, _ = corr_constants(corr_scale)
     _library.launch(
         "bias_act_norm_fwd", "bias_act_norm_fwd", x.device,
         x.data_ptr(), bias.data_ptr(), _ptr(g), _ptr(b),
-        _ptr(n), _ptr(nw) if mode == "noise" else None,
-        y.data_ptr(), mean.data_ptr(), var.data_ptr(), bsz * ch, ch, size,
+        _ptr(n) if mode == "noise" else None, _ptr(nw) if mode == "noise" else None,
+        y.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), part.data_ptr(),
+        _stream_flags(x).data_ptr(), bsz, ch, size,
         _DTYPES[x.dtype], MODES[mode], int(g is not None), *pl.args(), eps, slope, ks, c2,
         context=pl)
-    return y, mean, var
+    return y, stats[0], stats[1]
 
 
 def backward(dy: Tensor, x: Tensor, bias: Tensor, g: Optional[Tensor], n: Optional[Tensor],
              nw: Optional[Tensor], mean: Tensor, var: Tensor, dm: Tensor, dv: Tensor, *,
              mode: str = "plain", eps: float = 1e-8, slope: float = 0.2,
              corr_scale: float = 1.0) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """(dx, d_bst, d_g, d_bias, d_nw): dx like x, the rest (B, C) f32 per (b, c),
-    not yet summed over b. One kernel launch, shaped by ``plan(..., "bwd")``."""
+    """(dx, d_bst, d_g, d_bias, d_nw): dx like x (channels-last), the rest (B, C)
+    f32 per (b, c), not yet summed over b. One kernel launch, shaped by
+    ``plan(..., "bwd")``."""
     bsz, ch, size = _check_common(x, bias, g, n, nw, mode)
-    _check("dy", dy, tuple(x.shape), x.device, x.dtype)
+    _check_activation("dy", dy, tuple(x.shape), x.device, x.dtype)
     for name, t in (("mean", mean), ("var", var), ("dm", dm), ("dv", dv)):
         _check(name, t, (bsz, ch), x.device)
-    pl = plan(bsz, ch, size, x.dtype, "bwd")
+    pl = plan(bsz, ch, size, x.dtype, "bwd", cuda_build.sm_count(x.device))
     dy, x = _aligned(dy), _aligned(x)
     n = _aligned(n) if mode == "noise" else None
     dx = torch.empty_like(x)
     sums = torch.empty((4, bsz, ch), dtype=torch.float32, device=x.device)
+    part = torch.empty((bsz * pl.tiles, 2 * ch), dtype=torch.float32, device=x.device)
     ks, c2, inv_s2 = corr_constants(corr_scale)
     _library.launch(
         "bias_act_norm_bwd", "bias_act_norm_bwd", x.device,
         dy.data_ptr(), x.data_ptr(), bias.data_ptr(), _ptr(g),
-        _ptr(n), _ptr(nw) if mode == "noise" else None,
+        _ptr(n) if mode == "noise" else None, _ptr(nw) if mode == "noise" else None,
         mean.data_ptr(), var.data_ptr(), dm.data_ptr(), dv.data_ptr(), dx.data_ptr(),
         sums[0].data_ptr(), sums[1].data_ptr(), sums[2].data_ptr(), sums[3].data_ptr(),
-        bsz * ch, ch, size, _DTYPES[x.dtype], MODES[mode], int(g is not None),
+        part.data_ptr(), _stream_flags(x).data_ptr(),
+        bsz, ch, size, _DTYPES[x.dtype], MODES[mode], int(g is not None),
         *pl.args(), eps, slope, ks, c2, inv_s2, context=pl)
     return dx, sums[0], sums[1], sums[2], sums[3]

@@ -1,11 +1,11 @@
 """Binding of the hand-written CUDA blur kernel (csrc/blur3x3.cu).
 
-The style nets' fixed [1,2,1] x [1,2,1] / 16 blur with zero padding, on an
-NCHW tensor of float32 or bfloat16, one launch a call, forward or backward:
-the backward is the same kernel on the output gradient (``flip`` only sums
-the nine terms in the order ATen's depthwise backward does). It replaces no
-TPU kernel; the source's header says why it exists, what bounds it and how
-it is laid out.
+The style nets' fixed [1,2,1] x [1,2,1] / 16 blur with zero padding, on a
+channels-last (B, C, H, W) tensor of float32 or bfloat16, one launch a call,
+forward or backward: the backward is the same kernel on the output gradient
+(``flip`` only sums the nine terms in the order ATen's depthwise backward
+does). It replaces no TPU kernel; the source's header says why it exists,
+what bounds it and how it is laid out.
 
 Build and launch: ``ops/cuda_build.py`` (its module doc), on the first call
 with a CUDA tensor, never at import, in one ``nvcc`` round with the fused
@@ -25,7 +25,6 @@ import torch
 
 from soft_intro_vae_torch.ops import cuda_build
 from soft_intro_vae_torch.ops.cuda_build import H100_SMS
-from soft_intro_vae_torch.ops.cuda_build import SM90_SMEM as MAX_SMEM
 
 Tensor = torch.Tensor
 
@@ -33,35 +32,30 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "blur3x3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 VEC_BYTES = 16               # the widest load or store a thread makes
-MAX_THREADS = 1024
-TILE_BYTES = 32 * 1024       # staged bytes a CTA aims at
+MAX_THREADS = 256            # the kernel's __launch_bounds__
 THREADS = 256                # threads a CTA aims at
-MIN_CTAS_PER_SM = 2          # small planes: the fewest CTAs an SM gets
+RING = 6                     # rows a CTA's ring stages (csrc/blur3x3.cu kRing)
+MIN_CTAS_PER_SM = 4          # the grid a launch aims at, while bands are taller than MIN_ROWS
+MIN_ROWS = 8
 
 
 class Plan(NamedTuple):
-    """One launch. ``vec`` elements a thread takes in a row (W // vec threads
-    cover it); a CTA takes ``rows`` output rows of a plane (``strips`` CTAs a
-    plane) or, where ``planes`` > 1, that many whole planes; its ``walkers``
-    (threads // (W // vec)) each take runs of ``run_rows`` consecutive rows
-    of one plane, ``runs`` runs a plane; ``smem`` staged bytes; ``grid``
-    CTAs."""
+    """One launch. A thread takes ``vec`` channels of one pixel (C // vec
+    threads a pixel); a CTA takes ``cols`` consecutive pixels of a band of
+    ``rows`` rows of one image, through a ring of RING staged rows of
+    ``smem`` bytes; ``threads`` = cols * C // vec; ``grid`` CTAs: B *
+    ceil(H / rows) * ceil(W / cols)."""
 
     vec: int
+    cols: int
     rows: int
-    strips: int
-    planes: int
-    walkers: int
-    runs: int
-    run_rows: int
     threads: int
     smem: int
     grid: int
 
     def args(self):
         """The plan in the C entry point's order."""
-        return (self.vec, self.rows, self.strips, self.planes, self.walkers, self.runs,
-                self.run_rows, self.threads, self.smem, self.grid)
+        return tuple(self)
 
 
 def spec() -> cuda_build.Spec:
@@ -70,8 +64,8 @@ def spec() -> cuda_build.Spec:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.blur3x3.argtypes = [p, p, ll] + [i] * 14 + [p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.blur3x3.argtypes = [p, p] + [i] * 12 + [p]
     lib.blur3x3.restype = ctypes.c_int
 
 
@@ -88,62 +82,50 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(planes: int, h: int, w: int, dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
-    """The launch for ``planes`` (B * C) planes of h x w elements of ``dtype``.
+def plan(bsz: int, ch: int, h: int, w: int, dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
+    """The launch for ``bsz`` images of h x w pixels of ``ch`` channels of ``dtype``.
 
-    A plane of at most TILE_BYTES goes whole to a CTA with others, as many as
-    fill the tile while every SM still gets MIN_CTAS_PER_SM CTAs; a larger
-    plane is cut into strips of equal rows that, with the halo rows, fill the
-    tile. Raises ValueError where one row is too wide for a CTA."""
+    The widest unit of channels (16 bytes at most) that divides C; as many
+    pixels a CTA as bring it to THREADS threads; bands of the whole image's
+    rows, halved (down to MIN_ROWS) while the grid gives an SM fewer than
+    MIN_CTAS_PER_SM CTAs. Raises ValueError where one pixel's channels need
+    more than MAX_THREADS threads."""
     if dtype not in _ELEM_BYTES:
         raise TypeError(f"the blur takes float32 or bfloat16, got {dtype}")
-    if min(planes, h, w) <= 0:
-        raise ValueError(f"empty launch: {planes} planes of {h} x {w}")
+    if min(bsz, ch, h, w) <= 0:
+        raise ValueError(f"empty launch: {bsz} images of {ch} x {h} x {w}")
     es = _ELEM_BYTES[dtype]
     vec = VEC_BYTES // es
-    while w % vec:
+    while ch % vec:
         vec //= 2
-    across = w // vec
-    if across > MAX_THREADS:
-        raise ValueError(f"a row of {w} {dtype} elements needs {across} threads, more than "
+    units = ch // vec
+    if units > MAX_THREADS:
+        raise ValueError(f"a pixel of {ch} {dtype} channels needs {units} threads, more than "
                          f"{MAX_THREADS}")
-    row_bytes, plane_bytes = w * es, h * w * es
-    if plane_bytes <= TILE_BYTES:
-        per_cta = max(1, min(TILE_BYTES // plane_bytes, planes // (MIN_CTAS_PER_SM * sms)))
-        rows, strips, staged = h, 1, per_cta * plane_bytes
-    else:
-        per_cta = 1
-        fit = max(TILE_BYTES, 3 * row_bytes) // row_bytes - 2
-        strips = _ceil_div(h, fit)
-        rows = _ceil_div(h, strips)
-        strips = _ceil_div(h, rows)
-        staged = min(rows + 2, h) * row_bytes
-    smem = _ceil_div(staged, 16) * 16
-    if smem > MAX_SMEM:
-        raise ValueError(f"a strip of rows of {w} {dtype} elements needs {smem} bytes of shared "
-                         f"memory, more than {MAX_SMEM}")
-    walkers = max(1, THREADS // across)
-    runs = max(1, min(rows, walkers // per_cta))
-    run_rows = _ceil_div(rows, runs)
-    runs = _ceil_div(rows, run_rows)
-    return Plan(vec, rows, strips, per_cta, walkers, runs, run_rows, across * walkers, smem,
-                _ceil_div(planes, per_cta) * strips)
+    cols = max(1, min(w, THREADS // units))
+    col_blocks = _ceil_div(w, cols)
+    rows = h
+    while rows > MIN_ROWS and bsz * _ceil_div(h, rows) * col_blocks < MIN_CTAS_PER_SM * sms:
+        rows = _ceil_div(rows, 2)
+    smem = RING * (cols + 2) * ch * es
+    return Plan(vec, cols, rows, cols * units, smem, bsz * _ceil_div(h, rows) * col_blocks)
 
 
 def check_input(x: Tensor) -> None:
-    """What the kernel takes: a contiguous (B, C, H, W) float32 or bfloat16 tensor."""
+    """What the kernel takes: a channels-last (B, C, H, W) float32 or bfloat16 tensor."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"the blur kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4:
         raise ValueError(f"the blur takes (B, C, H, W), got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("the blur kernel takes a contiguous NCHW tensor")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("the blur kernel takes a channels-last tensor (NHWC in memory)")
 
 
 def blur3x3_cuda(x: Tensor, flip: bool = False) -> Tensor:
-    """The blur of x (B, C, H, W) on the card, in x's type: one launch on the
-    current stream, no synchronisation. ``flip`` sums the nine terms in the
-    order of ATen's depthwise backward (the Function's backward)."""
+    """The blur of a channels-last x (B, C, H, W) on the card, in x's type and
+    layout: one launch on the current stream, no synchronisation. ``flip``
+    sums the nine terms in the order of ATen's depthwise backward (the
+    Function's backward)."""
     if not x.is_cuda:
         raise ValueError(f"blur3x3_cuda needs a CUDA tensor, got device {x.device}")
     check_input(x)
@@ -151,8 +133,10 @@ def blur3x3_cuda(x: Tensor, flip: bool = False) -> Tensor:
     if y.numel() == 0:
         return y
     bsz, ch, h, w = x.shape
-    p = plan(bsz * ch, h, w, x.dtype, cuda_build.sm_count(x.device))
-    _library.launch("blur3x3", "blur3x3", x.device, x.data_ptr(), y.data_ptr(), bsz * ch, h, w,
+    p = plan(bsz, ch, h, w, x.dtype, cuda_build.sm_count(x.device))
+    if x.data_ptr() % (p.vec * x.element_size()):
+        x = x.clone()  # a view that starts off a unit: the kernel's loads need whole units
+    _library.launch("blur3x3", "blur3x3", x.device, x.data_ptr(), y.data_ptr(), bsz, h, w, ch,
                     _DTYPES[x.dtype], int(flip), *p.args(),
                     context=f"shape {tuple(x.shape)}, {x.dtype}, {p}")
     return y

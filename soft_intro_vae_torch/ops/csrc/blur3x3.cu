@@ -1,5 +1,6 @@
 // The style nets' fixed 3x3 blur, [1,2,1] x [1,2,1] / 16 with zero padding,
-// for Hopper (sm_90a), forward and backward in one kernel.
+// for Hopper (sm_90a), forward and backward in one kernel, on channels-last
+// tensors.
 //
 // Replaces no TPU kernel: the JAX package's blur3x3
 // (soft_intro_vae_tpu/models/style.py:55) is an XLA grouped convolution with no
@@ -9,72 +10,66 @@
 // and made it the largest cost of the LOD-6 style step. So it has a kernel of
 // its own.
 //
-// What it computes, per (b, c) plane of an NCHW tensor x (float32 or bf16):
+// What it computes, per channel of a channels-last (B, C, H, W) tensor x,
+// (B, H, W, C) in memory (float32 or bf16):
 //   y[r][c] = sum over kh, kw in 0..2 of w[kh][kw] * x[r + kh - 1][c + kw - 1],
-//   w = [1,2,1]^T [1,2,1] / 16, x outside the plane = 0,
+//   w = [1,2,1]^T [1,2,1] / 16, x outside the image = 0,
 // with a float32 sum of the nine terms in ATen's order, each term an FMA
 // (every w is a power of two, so each product is exact), rounded once to x's
-// type: bit for bit what conv_depthwise2d_forward gives. The filter is
-// symmetric and the padding zero, so the input gradient of the blur is the
-// blur of the output gradient, exactly: the backward is this kernel on dy.
-// ATen's backward walks the nine terms in the reverse order (kh = 0 reads row
-// r + 1, kw = 0 column c + 1); `flip` sums them in that order, so dx is bit for
-// bit conv_depthwise2d_backward's too.
+// type: bit for bit what conv_depthwise2d_forward gives on an NCHW copy of x.
+// The filter is symmetric and the padding zero, so the input gradient of the
+// blur is the blur of the output gradient, exactly: the backward is this
+// kernel on dy. ATen's backward walks the nine terms in the reverse order (kh
+// = 0 reads row r + 1, kw = 0 column c + 1); `flip` sums them in that order, so
+// dx is bit for bit conv_depthwise2d_backward's too.
 //
 // What bounds it: bytes. Nine FMAs an element against one element read and one
 // written (4 bytes in bf16): far below the card's balance of operations to
 // bytes. The least traffic is each input read once and each output written
 // once. At the LOD-6 style step's b32 sites that is 25.70 GB a step, 7.67 ms at
-// 3.35 TB/s; the two largest planes (32, 64, 256, 256) and (32, 128, 128, 128)
+// 3.35 TB/s; the two largest sites (32, 64, 256, 256) and (32, 128, 128, 128)
 // hold 75% of it.
 //
-// The design: a CTA stages a contiguous run of x in shared memory, then writes
-// y from the staged copy.
-//   * Staging. A plane larger than the plan's tile is cut into K strips of R
-//     rows, one CTA a strip; the CTA stages its R rows and the row above and
-//     below them (the halo: (R + 2) / R of the strip's bytes, the halo rows
-//     mostly L2 hits, since the neighbouring strips run beside it). Smaller
-//     planes go P to a CTA, whole. Either way the staged rows are one
-//     contiguous run of x, which every thread copies in 16-byte pieces with
-//     cp.async (nothing held in registers, the CTA's every byte in flight at
-//     once), or element by element where the run is not 16-byte aligned.
-//   * Compute. W / V threads cover a row, V elements each (16 bytes: 8 bf16 or
-//     4 f32, fewer where W is not a multiple); the CTA's other threads are
-//     further "walkers", each taking a run of consecutive output rows of one
-//     plane. A walker keeps three rows of its V + 2 columns in registers in
-//     float32 and rolls down its run: a row is one 16-byte shared-memory read
-//     and two scalar reads for the columns beside it, nine FMAs an output,
-//     one 16-byte store to y.
-// The launch plan (ops/blur_cuda.py ``plan``: V, R, K, P, threads, walkers,
-// runs a plane, rows a run, shared bytes, grid) comes from the shape alone, in
-// plain Python that the CPU tests hold to covering every element once; this
-// file checks it and refuses one that does not fit. Indices into x and y are
-// 64-bit.
+// The design. A CTA takes L consecutive pixels of a band of R rows of one
+// image, all C channels, and walks down the band. It stages the rows, each
+// with the pixels left and right of its L (the halo, clipped at the image's
+// edges), through a ring of kRing rows in shared memory: in NHWC a staged row
+// is one contiguous run of (L + 2) * C elements, which the threads copy in
+// 16-byte pieces with cp.async, kRing - 3 rows ahead of the row they sum, so
+// that loads stay in flight while they compute (element by element where a
+// pixel's channels are not whole 16-byte pieces). A thread takes a unit of V
+// channels of one pixel (16 bytes: 8 bf16 or 4 f32, fewer where C is not a
+// multiple) and keeps three rows of its unit, at its pixel and the two beside
+// it, in registers as they were loaded: a row is three shared-memory reads,
+// nine FMAs a channel and one 16-byte store to y, and a warp's reads and
+// stores are whole runs of neighbouring pixels. The rows above and below a
+// band (2 / R of its rows) and the halo pixels are mostly L2 hits, so each
+// input byte leaves device memory about once. The launch plan
+// (ops/blur_cuda.py ``plan``: V, L, R, threads, shared bytes, grid) comes
+// from the shape alone, in plain Python that the CPU tests hold to covering
+// every element once; this file checks it and refuses one that does not
+// fit. Indices into x and y are 64-bit.
 
-#include <algorithm>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
+constexpr int kMaxThreads = 256;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory one CTA may use on sm_90
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kRing = 6;          // staged rows: three ahead of the three a row's sums read
 
 // the filter's three distinct taps: corner, edge, centre
 constexpr float kCorner = 0.0625f, kEdge = 0.125f, kCentre = 0.25f;
 
 struct Geom {
-  long long planes;  // B * C
-  int h, w;
-  int vec;           // V: elements a thread takes in a row
-  int rows;          // R: output rows of a plane a CTA takes (h where planes_per_cta > 1)
-  int strips;        // K: CTAs a plane
-  int planes_per_cta;  // P
-  int walkers;       // threads / (w / vec)
-  int runs;          // runs a plane: walkers that share one plane's rows
-  int run_rows;      // rows a run
+  int images, h, w, c;
+  int vec;      // V: channels a thread takes
+  int cols;     // L: pixels of a row a CTA takes
+  int rows;     // R: rows a CTA takes
+  int col_blocks, row_blocks;
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -99,153 +94,161 @@ __device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
-__device__ __forceinline__ void wait_async_copies() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// The staged row `row` (its first element) into dst[1..V], the columns beside
-// it into dst[0] and dst[V + 1] (0 beyond the plane's edges).
 template <typename T, int V>
-__device__ __forceinline__ void load_row(float (&dst)[V + 2], const T* row, int col, int w) {
-  const Vec<T, V> v = *reinterpret_cast<const Vec<T, V>*>(row + col);
+__device__ __forceinline__ Vec<T, V> zero_vec() {
+  Vec<T, V> z;
 #pragma unroll
-  for (int i = 0; i < V; ++i) dst[i + 1] = to_float(v.v[i]);
-  dst[0] = col > 0 ? to_float(row[col - 1]) : 0.f;
-  dst[V + 1] = col + V < w ? to_float(row[col + V]) : 0.f;
+  for (int i = 0; i < V; ++i) z.v[i] = from_float<T>(0.f);
+  return z;
 }
 
-template <int V>
-__device__ __forceinline__ void zero_row(float (&dst)[V + 2]) {
-#pragma unroll
-  for (int i = 0; i < V + 2; ++i) dst[i] = 0.f;
+// The staged row at the thread's pixel (`row`, null where the row is outside
+// the image) into dst as loaded: left of the pixel, at it, right of it, zeros
+// beyond the image.
+template <typename T, int V>
+__device__ __forceinline__ void load_row(Vec<T, V> (&dst)[3], const T* row, bool left, bool right,
+                                         int c) {
+  if (row == nullptr) {
+    dst[0] = dst[1] = dst[2] = zero_vec<T, V>();
+    return;
+  }
+  dst[1] = *reinterpret_cast<const Vec<T, V>*>(row);
+  dst[0] = left ? *reinterpret_cast<const Vec<T, V>*>(row - c) : zero_vec<T, V>();
+  dst[2] = right ? *reinterpret_cast<const Vec<T, V>*>(row + c) : zero_vec<T, V>();
 }
 
-// One output row from the rows above (a), at (b) and below (c), the nine
+// One output unit from the rows above (a), at (b) and below (c), the nine
 // terms in ATen's order: forward kh = 0..2 over a, b, c and kw = 0..2 left to
 // right; kFlip the reverse (c, b, a, right to left), as ATen's backward.
 template <typename T, int V, bool kFlip>
-__device__ __forceinline__ void stencil_row(const float (&a)[V + 2], const float (&b)[V + 2],
-                                            const float (&c)[V + 2], T* out) {
+__device__ __forceinline__ void stencil(const Vec<T, V> (&a)[3], const Vec<T, V> (&b)[3],
+                                        const Vec<T, V> (&c)[3], T* out) {
   Vec<T, V> o;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     float s = 0.f;
     if (!kFlip) {
-      s = fmaf(kCorner, a[i], s);
-      s = fmaf(kEdge, a[i + 1], s);
-      s = fmaf(kCorner, a[i + 2], s);
-      s = fmaf(kEdge, b[i], s);
-      s = fmaf(kCentre, b[i + 1], s);
-      s = fmaf(kEdge, b[i + 2], s);
-      s = fmaf(kCorner, c[i], s);
-      s = fmaf(kEdge, c[i + 1], s);
-      s = fmaf(kCorner, c[i + 2], s);
+      s = fmaf(kCorner, to_float(a[0].v[i]), s);
+      s = fmaf(kEdge, to_float(a[1].v[i]), s);
+      s = fmaf(kCorner, to_float(a[2].v[i]), s);
+      s = fmaf(kEdge, to_float(b[0].v[i]), s);
+      s = fmaf(kCentre, to_float(b[1].v[i]), s);
+      s = fmaf(kEdge, to_float(b[2].v[i]), s);
+      s = fmaf(kCorner, to_float(c[0].v[i]), s);
+      s = fmaf(kEdge, to_float(c[1].v[i]), s);
+      s = fmaf(kCorner, to_float(c[2].v[i]), s);
     } else {
-      s = fmaf(kCorner, c[i + 2], s);
-      s = fmaf(kEdge, c[i + 1], s);
-      s = fmaf(kCorner, c[i], s);
-      s = fmaf(kEdge, b[i + 2], s);
-      s = fmaf(kCentre, b[i + 1], s);
-      s = fmaf(kEdge, b[i], s);
-      s = fmaf(kCorner, a[i + 2], s);
-      s = fmaf(kEdge, a[i + 1], s);
-      s = fmaf(kCorner, a[i], s);
+      s = fmaf(kCorner, to_float(c[2].v[i]), s);
+      s = fmaf(kEdge, to_float(c[1].v[i]), s);
+      s = fmaf(kCorner, to_float(c[0].v[i]), s);
+      s = fmaf(kEdge, to_float(b[2].v[i]), s);
+      s = fmaf(kCentre, to_float(b[1].v[i]), s);
+      s = fmaf(kEdge, to_float(b[0].v[i]), s);
+      s = fmaf(kCorner, to_float(a[2].v[i]), s);
+      s = fmaf(kEdge, to_float(a[1].v[i]), s);
+      s = fmaf(kCorner, to_float(a[0].v[i]), s);
     }
     o.v[i] = from_float<T>(s);
   }
   *reinterpret_cast<Vec<T, V>*>(out) = o;
 }
 
-// Output row r of a run: loads row r + 1 into `c` (zeros past the plane's last
-// row), then writes row r from (a, b, c).
-template <typename T, int V, bool kFlip>
-__device__ __forceinline__ void step_row(float (&a)[V + 2], float (&b)[V + 2], float (&c)[V + 2],
-                                         const T* tile, long long base, T* out, int r, int col,
-                                         int h, int w) {
-  if (r + 1 < h) {
-    load_row<T, V>(c, tile + (base + r + 1) * w, col, w);
-  } else {
-    zero_row<V>(c);
+// Starts staging row r of the image (pixels cs..ce-1, every channel) into
+// ring slot `slot`, and commits it as one cp.async group in every thread (an
+// empty group for a row outside 0..rmax), so the groups count rows.
+template <typename T>
+__device__ __forceinline__ void stage_row(T* slot, const T* img, int r, int rmax, int cs, int ce,
+                                          const Geom& g, bool vector) {
+  if (r >= 0 && r <= rmax) {
+    const T* src = img + ((int64_t)r * g.w + cs) * g.c;
+    const int run = (ce - cs) * g.c;
+    if (vector) {
+      for (int i = threadIdx.x; i < run * (int)sizeof(T) / 16; i += blockDim.x)
+        copy16_async(reinterpret_cast<char*>(slot) + 16 * i,
+                     reinterpret_cast<const char*>(src) + 16 * i);
+    } else {
+      for (int i = threadIdx.x; i < run; i += blockDim.x) slot[i] = src[i];
+    }
   }
-  stencil_row<T, V, kFlip>(a, b, c, out + (long long)r * w + col);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 template <typename T, int V, bool kFlip>
 __global__ void __launch_bounds__(kMaxThreads)
     blur3x3_stencil(const T* __restrict__ x, T* __restrict__ y, const Geom g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* tile = reinterpret_cast<T*>(smem);
-  const long long group = blockIdx.x / g.strips;
-  const int strip = blockIdx.x % g.strips;
-  const long long p0 = group * g.planes_per_cta;
-  const int np = (int)min((long long)g.planes_per_cta, g.planes - p0);
-  const int r0 = strip * g.rows;
-  const int r1 = min(r0 + g.rows, g.h);
-  const int rs = max(r0 - 1, 0);       // first staged row
-  const int re = min(r1 + 1, g.h);     // past the last staged row
-  const T* src = x + (p0 * g.h + rs) * (long long)g.w;
-  const int count = ((np - 1) * g.h + (re - rs)) * g.w;  // one contiguous run
+  T* ring = reinterpret_cast<T*>(smem);
+  const int col_block = blockIdx.x % g.col_blocks;
+  const int rest = blockIdx.x / g.col_blocks;
+  const int row_block = rest % g.row_blocks;
+  const int image = rest / g.row_blocks;
+  const int r0 = row_block * g.rows, r1 = min(r0 + g.rows, g.h);
+  const int q0 = col_block * g.cols, q1 = min(q0 + g.cols, g.w);
+  const int cs = max(q0 - 1, 0), ce = min(q1 + 1, g.w);  // staged pixels
+  const int rmax = min(r1, g.h - 1);                      // the last row the band reads
+  const int pitch = (g.cols + 2) * g.c;                   // elements a ring slot
+  const T* img = x + (int64_t)image * g.h * g.w * g.c;
+  // whole 16-byte pieces where a pixel's channels are (then every staged row,
+  // its slot and its source are 16-byte aligned)
+  const bool vector = (g.c * (int)sizeof(T)) % 16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
 
-  const int bytes = count * (int)sizeof(T);
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (bytes & 15) == 0) {
-    const char* from = reinterpret_cast<const char*>(src);
-    for (int i = threadIdx.x; i < (bytes >> 4); i += blockDim.x) {
-      copy16_async(smem + 16 * i, from + 16 * i);
-    }
-    wait_async_copies();
-  } else {
-    for (int i = threadIdx.x; i < count; i += blockDim.x) tile[i] = src[i];
-  }
-  __syncthreads();
+  // ring row j holds image row r0 - 1 + j, in slot j % kRing
+  for (int j = 0; j < kRing - 1; ++j)
+    stage_row<T>(ring + (j % kRing) * pitch, img, r0 - 1 + j, rmax, cs, ce, g, vector);
 
-  const int across = g.w / V;  // threads a row
-  const int col = (threadIdx.x % across) * V;
-  const int walker = threadIdx.x / across;
-  for (int run = walker; run < np * g.runs; run += g.walkers) {
-    const int pl = run / g.runs;
-    const int a = r0 + (run % g.runs) * g.run_rows;
-    const int b = min(a + g.run_rows, r1);
-    if (a >= b) continue;
-    // row r of the plane is staged row base + r (rows rs..re-1 of plane 0 in
-    // a strip; rows 0..h-1 of each plane where rs = 0)
-    const long long base = (long long)pl * g.h - rs;
-    T* out = y + (p0 + pl) * g.h * (long long)g.w;
-    float up[V + 2], mid[V + 2], down[V + 2];
-    if (a > 0) {
-      load_row<T, V>(up, tile + (base + a - 1) * g.w, col, g.w);
-    } else {
-      zero_row<V>(up);
+  const int units = g.c / V;
+  const int q = q0 + threadIdx.x / units;
+  const bool active = q < q1;
+  const int ch = (threadIdx.x - (threadIdx.x / units) * units) * V;
+  const bool left = q > 0, right = q + 1 < g.w;
+  const int at = (q - cs) * g.c + ch;  // the thread's pixel and unit in a slot
+  auto row = [&](int j) -> const T* {
+    const int r = r0 - 1 + j;
+    return r < 0 || r >= g.h ? nullptr : ring + (j % kRing) * pitch + at;
+  };
+  T* out = y + (((int64_t)image * g.h + r0) * g.w + q) * g.c + ch;
+  const int64_t stride = (int64_t)g.w * g.c;
+  Vec<T, V> up[3], mid[3], down[3];
+  // output row r0 + k needs ring rows k..k+2: rows 0..k+2 are done once at
+  // most kRing - 4 of the groups committed before it are pending
+  auto next = [&](int k, Vec<T, V> (&a)[3], Vec<T, V> (&b)[3], Vec<T, V> (&c)[3]) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 4) : "memory");
+    __syncthreads();
+    stage_row<T>(ring + ((k + kRing - 1) % kRing) * pitch, img, r0 + k + kRing - 2, rmax, cs, ce,
+                 g, vector);
+    if (active) {
+      if (k == 0) {
+        load_row<T, V>(a, row(0), left, right, g.c);
+        load_row<T, V>(b, row(1), left, right, g.c);
+      }
+      load_row<T, V>(c, row(k + 2), left, right, g.c);
+      stencil<T, V, kFlip>(a, b, c, out + k * stride);
     }
-    load_row<T, V>(mid, tile + (base + a) * g.w, col, g.w);
-    // three rows a turn, the roles rotating, so that no row is moved
-    for (int r = a; r < b; r += 3) {
-      step_row<T, V, kFlip>(up, mid, down, tile, base, out, r, col, g.h, g.w);
-      if (r + 1 >= b) break;
-      step_row<T, V, kFlip>(mid, down, up, tile, base, out, r + 1, col, g.h, g.w);
-      if (r + 2 >= b) break;
-      step_row<T, V, kFlip>(down, up, mid, tile, base, out, r + 2, col, g.h, g.w);
-    }
+  };
+  // three rows a turn, the roles rotating, so that no row is moved
+  for (int k = 0; k < r1 - r0; k += 3) {
+    next(k, up, mid, down);
+    if (k + 1 >= r1 - r0) break;
+    next(k + 1, mid, down, up);
+    if (k + 2 >= r1 - r0) break;
+    next(k + 2, down, up, mid);
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+int ceil_div(int64_t a, int64_t b) { return (int)((a + b - 1) / b); }
 
 // The plan's invariants (ops/blur_cuda.py ``plan``); true if it does not fit.
 bool bad_plan(const Geom& g, int elem, int threads, int smem, int grid) {
-  if (g.planes <= 0 || g.h <= 0 || g.w <= 0) return true;
-  if (g.vec <= 0 || g.vec * elem > 16 || (g.vec & (g.vec - 1)) != 0 || g.w % g.vec != 0)
+  if (g.images <= 0 || g.h <= 0 || g.w <= 0 || g.c <= 0) return true;
+  if (g.vec <= 0 || g.vec * elem > 16 || (g.vec & (g.vec - 1)) != 0 || g.c % g.vec != 0)
     return true;
-  const int across = g.w / g.vec;
-  if (g.walkers <= 0 || threads != across * g.walkers || threads > kMaxThreads) return true;
-  if (g.rows <= 0 || g.strips <= 0 || (long long)g.rows * g.strips < g.h ||
-      (long long)g.rows * (g.strips - 1) >= g.h)
+  if (g.cols <= 0 || g.rows <= 0 || threads != g.cols * (g.c / g.vec) || threads > kMaxThreads)
     return true;
-  if (g.planes_per_cta <= 0 || (g.planes_per_cta > 1 && g.rows != g.h)) return true;
-  if (g.runs <= 0 || g.run_rows <= 0 || (long long)g.runs * g.run_rows < g.rows) return true;
-  const long long staged = g.planes_per_cta > 1 ? (long long)g.planes_per_cta * g.h
-                                                : (long long)std::min(g.rows + 2, g.h);
-  if (smem < staged * g.w * elem || smem > kMaxSmem) return true;
-  return (long long)grid != (long long)ceil_div(g.planes, g.planes_per_cta) * g.strips;
+  if (g.col_blocks != ceil_div(g.w, g.cols) || g.row_blocks != ceil_div(g.h, g.rows)) return true;
+  const int64_t staged = (int64_t)kRing * (g.cols + 2) * g.c * elem;
+  if (smem < staged || smem > kMaxSmem) return true;
+  return (int64_t)grid != (int64_t)g.images * g.row_blocks * g.col_blocks;
 }
 
 template <typename T, int V>
@@ -265,18 +268,20 @@ int launch(const void* x, void* y, const Geom& g, bool flip, int threads, int sm
 
 extern "C" {
 
-// x, y: (planes, h, w) contiguous, of dtype (0 f32, 1 bf16), not overlapping;
-// y 16-byte aligned. flip: the backward's order of the nine terms. vec..grid:
-// the launch plan of ops/blur_cuda.py ``plan``, checked here. Launches on
-// `stream` and returns the launch's cudaError_t (0 on success) without
-// synchronising.
-int blur3x3(const void* x, void* y, long long planes, int h, int w, int dtype, int flip, int vec,
-            int rows, int strips, int planes_per_cta, int walkers, int runs, int run_rows,
-            int threads, int smem, int grid, cudaStream_t stream) {
-  const Geom g{planes, h, w, vec, rows, strips, planes_per_cta, walkers, runs, run_rows};
+// x, y: (images, h, w, c) contiguous, of dtype (0 f32, 1 bf16), not
+// overlapping, aligned to a unit of `vec` elements. flip: the backward's order
+// of the nine terms. vec..grid: the launch plan of ops/blur_cuda.py ``plan``,
+// checked here. Launches on `stream` and returns the launch's cudaError_t (0
+// on success) without synchronising.
+int blur3x3(const void* x, void* y, int images, int h, int w, int c, int dtype, int flip,
+            int vec, int cols, int rows, int threads, int smem, int grid, cudaStream_t stream) {
+  const Geom g{images, h, w, c, vec, cols, rows, ceil_div(w, cols > 0 ? cols : 1),
+               ceil_div(h, rows > 0 ? rows : 1)};
   const int elem = dtype == 0 ? 4 : 2;
   if (x == nullptr || y == nullptr || dtype < 0 || dtype > 1 ||
-      (reinterpret_cast<uintptr_t>(y) & 15) != 0 || bad_plan(g, elem, threads, smem, grid))
+      bad_plan(g, elem, threads, smem, grid) ||
+      reinterpret_cast<uintptr_t>(x) % (vec * elem) != 0 ||
+      reinterpret_cast<uintptr_t>(y) % (vec * elem) != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     switch (vec) {

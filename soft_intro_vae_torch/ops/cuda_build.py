@@ -28,7 +28,10 @@ name. A launch recorded into a CUDA graph's capture counts once; the graph's
 replays launch it again without a call (train/graph.py counts those).
 
 ``use_kernel`` is the route policy of every dispatcher between a kernel and
-its plain version (``IMPLS``). ``sm_count``, ``H100_SMS`` and ``SM90_SMEM``
+its plain version (``IMPLS``); ``channels_last`` the layout policy of the
+style nets' dispatchers (the fused norm and the blur): both routes take a
+channels-last tensor, and a tensor in another layout is copied once and
+counted. ``sm_count``, ``H100_SMS`` and ``SM90_SMEM``
 are the card's facts the launch plans take.
 """
 
@@ -86,6 +89,15 @@ def use_kernel(impl: str, x: torch.Tensor, what: str) -> bool:
     if impl == "cuda" and not x.is_cuda:
         raise ValueError(f"impl='cuda' needs a CUDA tensor, got device {x.device}")
     return impl != "plain" and x.is_cuda
+
+
+def channels_last(t: torch.Tensor, counter: collections.Counter, what: str) -> torch.Tensor:
+    """``t`` in the channels-last layout the style kernels take: ``t`` itself
+    where it is, else a copy, counted in ``counter[what]`` (a relayout)."""
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return t
+    counter[what] += 1
+    return t.contiguous(memory_format=torch.channels_last)
 
 
 @functools.lru_cache(maxsize=None)

@@ -306,10 +306,11 @@ def style_step_probe(xs: np.ndarray, nzs: Optional[Sequence[Optional[Arrays]]] =
     ckpt = Checkpointer(save_dir) if save_dir is not None else None
     metrics = {}
     for i in range(start_step, steps):
-        x = np.ascontiguousarray(shard_batch(xs[i]).transpose(0, 3, 1, 2))
+        # the (B, C, H, W) view of the NHWC rows, channels-last, as the trainer's feed
+        x = torch.from_numpy(np.ascontiguousarray(shard_batch(xs[i]))).permute(0, 3, 1, 2)
         nz = None if nzs is None or nzs[i] is None else {
             k: torch.from_numpy(v) for k, v in nzs[i].items()}
-        state, metrics = intro(state, torch.from_numpy(x).to(dev), blend, nz)
+        state, metrics = intro(state, x.to(dev), blend, nz)
         if ckpt is not None and i == start_step:
             ckpt.save(state, epoch=0, iteration=i + 1)  # rank 0 writes
     names_e = {id(p) for p in state.nets.params_e()}

@@ -24,7 +24,8 @@ route N ranks do not compute what one does (ROADMAP Queue 3); at world 1 the
 batches are the JAX package's, byte for byte.
 
 The YAML is read by ``utils/yaml_config.py`` (the GPU machine has no
-PyYAML). Images are fed NCHW: float batches are normalised on
+PyYAML). Images are fed as (B, C, H, W) views of NHWC batches, so
+channels-last, the style nets' layout: float batches are normalised on
 the host (x / 127.5 - 1, as the JAX trainer does for float feeds and for
 every transition batch); uint8 batches go to the device as bytes and are
 normalised there by a 256-entry table lookup, exact for every byte. As in
@@ -343,15 +344,16 @@ def make_style_dataset(cfg: StyleConfig):
 
 
 class _Feed:
-    """Host batches (NHWC) -> NCHW f32 batches on the device, in [-1, 1].
+    """Host batches (NHWC) -> (B, C, H, W) f32 batches on the device, in
+    [-1, 1], channels-last (the NHWC buffer's permuted view).
 
     ``feed(raw, blend, blended)`` makes one batch on the caller's stream.
     ``put((raw, blend, blended))`` is the trainer's prefetch put (JAX
     train/style.py:457-471), run on the worker thread: on a CUDA device the
     host side goes through ``data/prefetch.py``'s pinned ring and side
-    stream, and the table lookup and the NCHW permute are queued on that
-    stream behind the copy, the returned ``Transfer``'s event behind them; on
-    the CPU it is ``feed``'s plain copy. Both give the same bits.
+    stream, and the table lookup is queued on that stream behind the copy,
+    the returned ``Transfer``'s event behind it; on the CPU it is ``feed``'s
+    plain copy. Both give the same bits.
     """
 
     def __init__(self, device: torch.device):
@@ -384,7 +386,7 @@ class _Feed:
     def _device(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.uint8:
             x = self.lut[x.long()]
-        return x.permute(0, 3, 1, 2).contiguous()
+        return x.permute(0, 3, 1, 2)
 
     def __call__(self, raw: np.ndarray, blend: float, blended: bool) -> torch.Tensor:
         return self._device(torch.from_numpy(self._host(raw, blend, blended)).to(self.device))

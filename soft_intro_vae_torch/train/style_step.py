@@ -289,11 +289,12 @@ def build_style_steps(model: StyleModel, cfg: StyleStepConfig, lod: int, blended
                       noise_mode: str = "batch") -> Tuple[StepFn, StepFn]:
     """(vanilla_step, intro_step) for one (lod, in_transition) pair.
 
-    ``step(state, x, blend=1.0, nz=None) -> (state, metrics)``: x is the NCHW
-    f32 batch on the state's device; ``blend`` (a float32 0-dim tensor on
-    that device, or a float, made one such tensor a step) is read only when
-    ``blended``;
-    metrics are 0-dim tensors left on the device. ``noise_mode`` selects the
+    ``step(state, x, blend=1.0, nz=None) -> (state, metrics)``: x is the
+    (B, C, H, W) f32 batch on the state's device, channels-last as the
+    trainer's feed makes it (the nets run channels-last either way);
+    ``blend`` (a float32 0-dim tensor on that device, or a float, made one
+    such tensor a step) is read only when ``blended``; metrics are 0-dim
+    tensors left on the device. ``noise_mode`` selects the
     decoder noise ("batch": fresh planes per call, the reference trainer's
     noise=True; "none": the deterministic correction, net.py:176-178).
     """

@@ -40,6 +40,8 @@ COVERED_ELSEWHERE = {
         (("ops/adain.py", "bias_act_norm_plain"),),
     ("ops/u8norm.py", "u8_to_unit_f32"):
         (("ops/u8norm.py", "u8_to_unit_nchw"), ("ops/u8norm.py", "u8_to_unit_nchw_plain")),
+    # the nets' blur lives beside its kernel; models/style.py imports it
+    ("models/style.py", "blur3x3"): (("ops/blur.py", "blur3x3"),),
     ("train/toy.py", "make_eval_fns"): (("train/toy.py", "det_fwd"), ("train/toy.py", "sample")),
     ("train/lreq_adam.py", "LreqAdamState"): (("train/lreq_adam.py", "LreqAdam"),),
     ("train/lreq_adam.py", "scale_by_lreq_adam"): (("train/lreq_adam.py", "LreqAdam"),),

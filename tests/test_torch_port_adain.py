@@ -12,6 +12,11 @@ rtol 2e-4, atol 2e-5 (as tests/test_adain_pallas.py). JAX's gradient is not
 taken through the interpret-mode kernel: the JAX package marks that slow.
 ``torch.autograd.gradcheck`` checks the hand-written backward in float64.
 
+The dispatcher runs channels-last on both routes: an NCHW input is copied
+once and counted in ``relayouts``, a channels-last one is not, and y and the
+input gradient come back channels-last; the plain functions give the same
+values on either layout; an output nothing reads gets zeros in x's layout.
+
 On the CPU the wrappers never reach the CUDA kernels; the kernels themselves
 are held to these plain functions on the card by ``chip_smoke.py``.
 """
@@ -165,6 +170,82 @@ def test_bf16_keeps_its_type_and_stats_in_f32():
     torch.testing.assert_close(y.float(), y32, rtol=2**-7, atol=1e-6)
 
 
+def test_dispatcher_runs_channels_last_and_counts_relayouts():
+    x, arrays, kw = _args("noise", True)
+    xt, rest = _port(x, arrays)
+    cl = torch.channels_last
+    before = dict(adain.relayouts)
+    y, _, _ = adain.bias_act_norm(xt, rest["bias"], rest["g"], rest["b"], rest["n"],
+                                  rest["nw"], **kw)
+    assert y.is_contiguous(memory_format=cl)
+    assert adain.relayouts["x"] == before.get("x", 0) + 1
+    xc = xt.contiguous(memory_format=cl).requires_grad_(True)
+    yc, mc, _ = adain.bias_act_norm(xc, rest["bias"], rest["g"], rest["b"], rest["n"],
+                                    rest["nw"], **kw)
+    torch.testing.assert_close(yc, y, rtol=0, atol=0)
+    (yc.float() * torch.randn_like(yc)).sum().add(mc.sum()).backward()
+    assert xc.grad.is_contiguous(memory_format=cl)
+    assert dict(adain.relayouts) == {**before, "x": before.get("x", 0) + 1}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_versions_agree_on_either_layout(mode):
+    x, arrays, kw = _args(mode, True, seed=13)
+    xt, rest = _port(x, arrays)
+    xc = xt.contiguous(memory_format=torch.channels_last)
+    args = (rest["bias"], rest["g"], rest["b"], rest.get("n"), rest.get("nw"))
+    fwd_n = adain.bias_act_norm_plain(xt, *args, **kw)
+    fwd_c = adain.bias_act_norm_plain(xc, *args, **kw)
+    for a, b in zip(fwd_n, fwd_c):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert fwd_c[0].is_contiguous(memory_format=torch.channels_last)
+    m, v = fwd_n[1], fwd_n[2]
+    dy = torch.randn(xt.shape, generator=torch.Generator().manual_seed(2))
+    bwd = [adain.bias_act_norm_backward_plain(
+        t, rest["bias"], rest["g"], rest.get("n"), rest.get("nw"), m, v,
+        dy.contiguous(memory_format=fmt), torch.ones_like(m), torch.ones_like(v), **kw)
+        for t, fmt in ((xt, torch.contiguous_format), (xc, torch.channels_last))]
+    for a, b in zip(*bwd):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_an_unread_output_gets_zeros_in_the_layout_of_x():
+    # the style encoder's last block reads only m and v of its second norm:
+    # y's gradient is zeros made in x's layout, not autograd's NCHW zeros
+    x, arrays, kw = _args("plain", False, seed=17)
+    xt, rest = _port(x, arrays)
+    xc = xt.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    before = dict(adain.relayouts)
+    _, m, v = adain.bias_act_norm(xc, rest["bias"], **kw)
+    (m.sum() + v.sum()).backward()
+    assert dict(adain.relayouts) == before
+    xr = xt.clone().requires_grad_(True)
+    y, m, v = adain.bias_act_norm_plain(xr, rest["bias"], **kw)
+    (m.sum() + v.sum() + 0 * y.sum()).backward()
+    torch.testing.assert_close(xc.grad, xr.grad, rtol=1e-5, atol=1e-6)
+
+
+def test_planes_of_equal_values_have_no_variance():
+    """The generator's first norm sees its expanded const, every plane one
+    value: the moments, taken about the image's first pixel, give m = e there
+    and v = 0 exactly, and y is the shift b up to the rounding of m * a (the
+    kernels are held to the same in chip_smoke.py's kernels phase)."""
+    gen = torch.Generator().manual_seed(31)
+    bsz, ch, size = 2, 16, 8
+    x = (2 * torch.randn(bsz, ch, 1, 1, generator=gen) + 0.3).expand(bsz, ch, size, size)
+    bias, g, b = (torch.randn(bsz, ch, generator=gen)[0], torch.randn(bsz, ch, generator=gen) + 1,
+                  torch.randn(bsz, ch, generator=gen))
+    xc = x.contiguous(memory_format=torch.channels_last)
+    for mode in ("plain", "corr"):
+        y, m, v = adain.bias_act_norm(xc, bias, g, b, mode=mode, eps=1e-8, corr_scale=1.414)
+        e, _ = adain._producer(x, bias, None, None, mode, 0.2, 1.414)
+        assert torch.equal(v, torch.zeros(bsz, ch)), mode
+        assert torch.equal(m, e[:, :, 0, 0]), mode
+        scale = (m * torch.rsqrt(v + 1e-8) * g).abs().max()
+        atol = float(4 * torch.finfo(torch.float32).eps * scale)
+        torch.testing.assert_close(y, b[:, :, None, None].expand(y.shape), rtol=0, atol=atol)
+
+
 def test_dispatch_on_cpu_never_reaches_the_kernels():
     x, arrays, kw = _args("noise", True)
     xt, rest = _port(x, arrays)
@@ -200,6 +281,23 @@ def test_kernel_wrappers_validate_their_inputs():
     with pytest.raises(ValueError, match="CUDA tensor"):
         z = torch.zeros(1, 2)
         adain_cuda.backward(x, x, torch.zeros(2), None, None, None, z, z, z, z)
+
+
+def test_launch_counters_are_kept_one_a_stream(monkeypatch):
+    # a launch's items meet through counters that no launch on another
+    # stream, which may overlap it, ever touches
+    monkeypatch.setattr(adain_cuda, "_FLAGS", {})
+    cpu = torch.device("cpu")
+    first, other = adain_cuda._flags(cpu, 1), adain_cuda._flags(cpu, 2)
+    assert adain_cuda._flags(cpu, 1) is first and first.data_ptr() != other.data_ptr()
+    assert first.dtype == torch.int32 and first.numel() == 2 + 3 * adain_cuda.MAX_IMAGES
+    assert not first.any()
+    # a stream's first launch under a CUDA graph's capture would put its
+    # counters in the graph's memory pool: refused
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    with pytest.raises(RuntimeError, match="captured"):
+        adain_cuda._flags(torch.device("cuda", 0), 3)
+    assert set(adain_cuda._FLAGS) == {(cpu, 1), (cpu, 2)}
 
 
 def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):

@@ -2,16 +2,19 @@
 
 The kernels run only on the card; their launch plan is plain Python and is
 held here, on the CPU, to what the kernels rely on, at every norm-site shape
-of configs/ffhq256.yaml at LODs 0-6 (the batch of LOD_2_BATCH_1GPU, the
-sites found by running the style nets on the meta device) and at the odd
-shape (3, 5, 7, 9), in both dtypes and both directions:
-  * the CTAs' staged runs tile the B*C planes, every element once, a run
-    never spans two planes unless it holds whole planes;
-  * the dynamic shared memory fits one CTA (227 KB, less the kernels' static
-    share) and holds the staged runs;
-  * the cluster size is a power of two of at most 8 and divides the CTAs;
-  * where the plan works in 16-byte units, every run and every plane starts
-    on a 16-byte boundary and is a whole number of units.
+of configs/ffhq256.yaml at LODs 0-6 (at batches 32 and 4, the sites found by
+running the style nets on the meta device) and at the odd shape (3, 5, 7, 9),
+in both dtypes and both directions:
+  * the plan is one the C entry points accept (``bad_plan``, mirrored here);
+  * an image's tiles cover its pixels once, each tile a contiguous run of
+    whole pixels streamed in chunks of at most CHUNK_BYTES staged (or one
+    pixel), and the threads of a CTA cover a chunk's (pixel, channel)
+    elements once, walked as the kernels walk them;
+  * where the plan works in units of 4 channels, every tile's run starts on a
+    16-byte boundary and every pixel's run is whole units;
+  * the tickets map one to one onto the sums and apply items, and every apply
+    item's ticket follows all of its image's sums items' tickets, which is
+    what keeps a launch free of deadlock whatever the card holds at once.
 """
 
 import os
@@ -28,79 +31,94 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FFHQ = StyleConfig.from_yaml(os.path.join(ROOT, "configs", "ffhq256.yaml"))
 DTYPES = [torch.float32, torch.bfloat16]
 ODD = (3, 5, 7, 9)
+BATCHES = (32, 4)          # the benchmark's b32 cell and the smoke's batch
 
 
-def site_shapes(lod):
+def site_shapes(lod, batch):
     cfg = FFHQ
-    batch = cfg.lod_2_batch_tables["1GPU"][lod]
     enc, gen = pass_sites(lod, batch, cfg.start_channel_count, cfg.max_channel_count,
                           cfg.layer_count, cfg.latent_space_size)
     return sorted({key[0] for key in (*enc, *gen)})
 
 
-def staged_runs(p, planes, size):
-    """(CTA, first element, elements) of every CTA's staged run, as the kernels'
-    ``segment`` computes them; element i of the launch is plane i // size."""
+def item_of(p, images, ticket):
+    """csrc/bias_act_norm.cu ``take_item``: (apply, image, tile) of a ticket."""
+    block, tile = divmod(ticket, p.tiles)
+    if block == 0:
+        return False, 0, tile
+    if block == 2 * images - 1:
+        return True, images - 1, tile
+    apply = block % 2 == 0
+    return apply, (block // 2 - 1 if apply else (block + 1) // 2), tile
+
+
+def entry_accepts(p, images, ch, size, es, arrays):
+    """csrc/bias_act_norm.cu ``bad_plan``, negated."""
+    if p.unit == adain_cuda.UNIT:
+        if ch * es % 16:
+            return False
+    elif p.unit != 1:
+        return False
+    units = ch // p.unit
+    need = (2 * (arrays * -(-p.chunk * ch * es // 16) * 16 + (p.chunk + 3) // 4 * 16)
+            + 2 * p.unit * p.threads * 4)
+    return (0 < images <= adain_cuda.MAX_IMAGES and p.rows >= 1
+            and p.rows * units == p.threads <= adain_cuda.MAX_THREADS
+            and p.chunk >= 1 and p.pixels >= 1 and p.tiles == -(-size // p.pixels)
+            and p.grid == 2 * images * p.tiles
+            and need <= p.smem <= adain_cuda.MAX_DYNAMIC_SMEM)
+
+
+def chunk_elements(p, count, ch):
+    """The (pixel, channel) elements of a chunk of ``count`` pixels the CTA's
+    threads take, as the kernels' loops walk them."""
+    units = ch // p.unit
     out = []
-    for cta in range(p.grid):
-        rank = cta % p.cluster
-        p0 = cta // p.cluster * p.planes_per_cta
-        start = rank * p.slice
-        if p.planes_per_cta == 1:
-            n = max(0, min(size - start, p.slice))
-        else:
-            n = (min(planes, p0 + p.planes_per_cta) - p0) * size
-        out.append((cta, p0 * size + start, n))
+    for t in range(p.threads):
+        u, r = t % units, t // units
+        for px in range(r, count, p.rows):
+            out.extend((px, u * p.unit + j) for j in range(p.unit))
     return out
 
 
 def check_plan(shape, dtype, direction):
     bsz, ch, h, w = shape
-    size, planes = h * w, bsz * ch
+    size = h * w
     es = torch.tensor([], dtype=dtype).element_size()
     arrays = 1 if direction == "fwd" else 2
     p = adain_cuda.plan(bsz, ch, size, dtype, direction)
     where = f"{shape} {dtype} {direction}: {p}"
+    assert entry_accepts(p, bsz, ch, size, es, arrays), where
+    assert p.unit == (adain_cuda.UNIT if ch * es % 16 == 0 else 1), where
 
-    assert p.tier in ("small", "plane", "cluster"), where
-    assert p.planes_per_cta * p.lanes == p.threads <= adain_cuda.MAX_THREADS, where
-    assert p.threads % 32 == 0 and (p.lanes <= 32 or p.lanes == p.threads), where
-    assert p.lanes & (p.lanes - 1) == 0, where
-    # cluster: a power of two, at most 8, one plane per CTA, dividing the grid
-    assert p.cluster in (1, 2, 4, 8) and p.cluster <= adain_cuda.MAX_CLUSTER, where
-    assert p.grid % p.cluster == 0, where
-    assert (p.tier == "cluster") == (p.cluster > 1), where
-    if p.cluster > 1:
-        assert p.planes_per_cta == 1, where
-    assert p.tier != "small" or size <= adain_cuda.SMALL_SIZE, where
-    # shared memory: holds the staged runs, fits one CTA
-    need = arrays * -(-p.planes_per_cta * p.slice * es // 16) * 16
-    assert need <= p.smem <= adain_cuda.MAX_DYNAMIC_SMEM < 227 * 1024, where
-
-    # every element of every plane staged by exactly one CTA
-    runs = sorted(staged_runs(p, planes, size), key=lambda r: r[1])
-    assert len(runs) == p.grid and all(n > 0 for _, _, n in runs), where
-    pos = 0
-    for _, start, n in runs:
-        assert start == pos, where
-        pos += n
-        if p.planes_per_cta > 1:
-            assert start % size == 0 and n % size == 0, where
-        else:
-            assert start // size == (start + n - 1) // size, where
-    assert pos == planes * size, where
-    if p.cluster > 1:
-        per_plane = [sum(1 for _, s, _ in runs if s // size == q) for q in range(planes)]
-        assert set(per_plane) == {p.cluster}, where
-
-    # 16-byte units only where every run and plane starts on a 16-byte boundary
-    assert p.unit in (1, 16 // es), where
+    # tiles: every pixel of an image once, each tile a run of whole pixels,
+    # streamed in chunks of whole pixels
+    firsts = [t * p.pixels for t in range(p.tiles)]
+    counts = [min(p.pixels, size - f) for f in firsts]
+    assert all(c > 0 for c in counts) and sum(counts) == size, where
+    assert arrays * p.chunk * ch * es <= max(adain_cuda.CHUNK_BYTES, arrays * ch * es), where
+    assert p.tiles <= -(-size // p.chunk), where  # no more tiles than chunks
+    chunks = [(f + k, min(p.chunk, c - k)) for f, c in zip(firsts, counts)
+              for k in range(0, c, p.chunk)]
+    assert sum(n for _, n in chunks) == size, where
     if p.unit > 1:
-        assert size * es % 16 == 0 and p.slice % p.unit == 0, where
-        for _, start, n in runs:
-            assert start * es % 16 == 0 and n * es % 16 == 0, where
-    else:
-        assert size * es % 16 != 0, where
+        assert all(f * ch * es % 16 == 0 for f, _ in chunks), where
+        assert ch % p.unit == 0 and ch * es % 16 == 0, where
+    # a CTA's threads take every (pixel, channel) of a chunk once
+    for count in sorted({n for _, n in chunks}):
+        elems = chunk_elements(p, count, ch)
+        assert len(elems) == count * ch == len(set(elems)), where
+
+    # tickets: one to one onto the items; an image's apply items after its sums items
+    items = [item_of(p, bsz, t) for t in range(p.grid)]
+    assert sorted(items) == sorted((a, b, t) for a in (False, True) for b in range(bsz)
+                                   for t in range(p.tiles)), where
+    last_sums = {}
+    for ticket, (apply, b, _) in enumerate(items):
+        if not apply:
+            last_sums[b] = ticket
+        else:
+            assert b in last_sums and last_sums[b] < ticket, where
     return p
 
 
@@ -108,49 +126,62 @@ def check_plan(shape, dtype, direction):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("lod", list(range(7)))
 def test_plan_covers_every_ffhq256_site(lod, dtype, direction):
-    shapes = site_shapes(lod)
-    assert shapes and len(shapes) == lod + 2
-    for shape in shapes:
-        check_plan(shape, dtype, direction)
+    for batch in BATCHES:
+        shapes = site_shapes(lod, batch)
+        assert shapes and len(shapes) == lod + 2
+        for shape in shapes:
+            check_plan(shape, dtype, direction)
 
 
 @pytest.mark.parametrize("direction", adain_cuda.DIRECTIONS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plan_odd_shape(dtype, direction):
     p = check_plan(ODD, dtype, direction)
-    assert p.tier == "small" and p.unit == 1  # S = 63: scalar elements
+    assert p.unit == 1 and p.tiles == 1  # C = 5: scalar elements; 63 pixels: one tile
 
 
 def test_plan_tiers_at_lod6():
-    # the tiers the source's header describes, at the LOD-6 sites in bf16
-    def plan(shape, direction):
-        bsz, ch, h, w = shape
-        return adain_cuda.plan(bsz, ch, h * w, torch.bfloat16, direction)
-
+    # the tiles the source's header describes, at the LOD-6 b32 sites in bf16:
+    # chunks of 32 KB staged, 256 threads, 4 channels a thread a step; tiles
+    # of 256 KB at the two largest sites, more tiles where the card would
+    # have fewer than 2 items a CTA slot
     for direction in adain_cuda.DIRECTIONS:
         arrays = 1 if direction == "fwd" else 2
-        # the 256x256 planes (128 KB of bf16 x) go to clusters: the least Q
-        # that brings a CTA's staging to STAGE_TARGET, at least two CTAs an SM
-        top = plan((4, 64, 256, 256), direction)
-        plane_bytes = arrays * 2 * 256 * 256
-        assert top.tier == "cluster" and top.cluster * adain_cuda.STAGE_TARGET >= plane_bytes
-        assert top.cluster // 2 * adain_cuda.STAGE_TARGET < plane_bytes
-        assert 2 * (top.smem + adain_cuda.STATIC_SMEM) <= 228 * 1024
-        assert plan((4, 512, 32, 32), direction).tier == "plane"
-        assert plan((4, 512, 16, 16), direction).tier == "small"
-        # 2x2 bf16 planes (8 bytes) are smaller than a unit: scalar elements
-        assert plan((4, 512, 2, 2), direction).unit == 1
+        for bsz, ch, h, w in ((32, 64, 256, 256), (32, 128, 128, 128), (32, 256, 64, 64),
+                              (32, 512, 32, 32)):
+            p = adain_cuda.plan(bsz, ch, h * w, torch.bfloat16, direction)
+            assert p.unit == 4 and p.threads == 256, p
+            assert arrays * p.chunk * ch * 2 == adain_cuda.CHUNK_BYTES, p
+            assert p.smem + adain_cuda.STATIC_SMEM <= 228 * 1024 // 3, p  # 3 CTAs an SM
+            assert p.grid >= adain_cuda.ITEMS_PER_SLOT * adain_cuda.CTAS_PER_SM * 132, p
+            if h >= 128:
+                assert arrays * p.pixels * ch * 2 == adain_cuda.TILE_BYTES, p
+        # a whole 4x4 image of 512 channels is one tile
+        assert adain_cuda.plan(32, 512, 16, torch.bfloat16, direction).tiles == 1
+        # 2x2 bf16 planes: 512 channels are still whole 16-byte units
+        assert adain_cuda.plan(4, 512, 4, torch.bfloat16, direction).unit == 4
 
 
 def test_plan_refuses_what_it_cannot_stage():
-    with pytest.raises(ValueError, match="does not fit"):
-        adain_cuda.plan(1, 1, 512 * 512, torch.float32, "bwd")
+    with pytest.raises(ValueError, match="threads"):
+        adain_cuda.plan(1, 2048, 16, torch.float32, "bwd")
+    with pytest.raises(ValueError, match="images"):
+        adain_cuda.plan(adain_cuda.MAX_IMAGES + 1, 8, 16, torch.float32, "fwd")
     with pytest.raises(ValueError, match="direction"):
         adain_cuda.plan(1, 1, 16, torch.float32, "sideways")
     with pytest.raises(TypeError):
         adain_cuda.plan(1, 1, 16, torch.float64, "fwd")
     with pytest.raises(ValueError, match="empty"):
         adain_cuda.plan(0, 1, 16, torch.float32, "fwd")
+
+
+@pytest.mark.parametrize("images,size,ch", [(1, 63, 5), (2, 15, 12), (3, 5000, 64),
+                                            (7, 4096, 256)])
+def test_plan_items_keep_sums_before_apply(images, size, ch):
+    # the ticket order at small and multi-tile shapes, both directions and types
+    for dtype in DTYPES:
+        for direction in adain_cuda.DIRECTIONS:
+            check_plan((images, ch, size, 1), dtype, direction)
 
 
 def test_step_mix_matches_the_launch_count():

@@ -7,18 +7,19 @@ On the CPU:
     in float32 and bfloat16; ``gradcheck`` (and ``gradgradcheck``) in float64;
   * the dispatcher: a CPU tensor takes ``F.conv2d`` as before, the nets call
     it, wrong routes raise;
-  * the launch plan at every plane of 1x1 to 256x256 (and odd ones) x C 1-512
+  * the launch plan at every image of 1x1 to 256x256 (and odd ones) x C 1-512
     x B 1-128, walked as the kernel walks it: every output element written
-    once, every row it reads staged, the staged run inside the shared memory
-    the plan asks for, and the plan within the C entry point's checks;
+    once, every element it reads inside the image or a zero of the padding,
+    and the plan within the C entry point's checks;
   * the kernel's symbol and C signature: the name free of the fused norm's
     ``fwd_kernel``/``bwd_kernel`` (which the norm's roofline metric matches),
     the binding's argument list as long as the C function's;
   * the first build compiles the blur and the fused norm together.
 
 On the card (``cuda`` marker; skipped here, decided inside each test): the
-kernel against ``F.conv2d`` forward and input gradient at every LOD-6 b32
-plane in bfloat16 and float32, bit for bit; the graphed LOD-6 style step
+kernel on channels-last tensors against ``F.conv2d`` forward and input
+gradient on NCHW copies at every LOD-6 b32 site in bfloat16 and float32, bit
+for bit; the graphed LOD-6 style step
 against its eager twin, bit for bit, with the blur's launches held to the
 step's sites (83 forward, 77 backward an intro step). This file imports no
 JAX, so on the card it runs as ``python -m pytest --noconftest -p
@@ -112,10 +113,26 @@ def test_dispatcher_refuses_wrong_routes():
 
 @pytest.mark.parametrize("bad,err", [(torch.zeros(1, 2, 4, 4, dtype=torch.float64), TypeError),
                                      (torch.zeros(2, 4, 4), ValueError),
-                                     (torch.zeros(1, 4, 4, 2).permute(0, 3, 1, 2), ValueError)])
+                                     (torch.zeros(1, 2, 4, 4), ValueError)])
 def test_the_kernel_refuses_what_it_does_not_take(bad, err):
     with pytest.raises(err):
         blur_cuda.check_input(bad)
+    # what it takes: the (B, C, H, W) view of an NHWC buffer
+    blur_cuda.check_input(torch.zeros(1, 4, 4, 2).permute(0, 3, 1, 2))
+
+
+def test_the_dispatcher_runs_channels_last_and_counts_relayouts():
+    x = torch.randn(2, 4, 9, 7)
+    before = dict(blur.relayouts)
+    y = style_nets.blur3x3(x)  # NCHW: one copy into channels-last
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert blur.relayouts["x"] == before.get("x", 0) + 1
+    xc = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    yc = style_nets.blur3x3(xc)
+    yc.backward(torch.randn_like(yc))
+    assert blur.relayouts["x"] == before.get("x", 0) + 1  # channels-last: no copy
+    assert xc.grad.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y, yc, rtol=0, atol=1e-6)
 
 
 # --- the launch plan, walked as the kernel walks it -------------------------
@@ -124,65 +141,55 @@ def _ceil_div(a, b):
     return -(-a // b)
 
 
-def _entry_accepts(p, planes, h, w, es):
+def _entry_accepts(p, bsz, ch, h, w, es):
     """csrc/blur3x3.cu ``bad_plan``, negated."""
-    across = w // p.vec if p.vec and w % p.vec == 0 else 0
-    staged = p.planes * h if p.planes > 1 else min(p.rows + 2, h)
-    return (p.vec > 0 and p.vec * es <= 16 and p.vec & (p.vec - 1) == 0 and w % p.vec == 0
-            and p.walkers > 0 and p.threads == across * p.walkers <= 1024
-            and p.rows > 0 and p.strips > 0 and p.rows * p.strips >= h
-            and p.rows * (p.strips - 1) < h
-            and p.planes > 0 and (p.planes == 1 or p.rows == h)
-            and p.runs > 0 and p.run_rows > 0 and p.runs * p.run_rows >= p.rows
-            and staged * w * es <= p.smem <= 232448
-            and p.grid == _ceil_div(planes, p.planes) * p.strips)
+    units = ch // p.vec if p.vec and ch % p.vec == 0 else 0
+    return (p.vec > 0 and p.vec * es <= 16 and p.vec & (p.vec - 1) == 0 and ch % p.vec == 0
+            and p.cols > 0 and p.rows > 0 and p.threads == p.cols * units <= 256
+            and blur_cuda.RING * (p.cols + 2) * ch * es <= p.smem <= 232448
+            and p.grid == bsz * _ceil_div(h, p.rows) * _ceil_div(w, p.cols))
 
 
-def _walk_cta(p, planes, h, w, block):
-    """The (plane, row, column) elements one CTA writes, in the kernel's own
-    index arithmetic (blur3x3_stencil), checking every row it reads lies in
-    its staged run. Returns the elements and the staged run's element count."""
-    group, strip = divmod(block, p.strips)
-    p0 = group * p.planes
-    np_ = min(p.planes, planes - p0)
-    r0 = strip * p.rows
-    r1 = min(r0 + p.rows, h)
-    rs, re_ = max(r0 - 1, 0), min(r1 + 1, h)
-    count = ((np_ - 1) * h + (re_ - rs)) * w
-    across = w // p.vec
-    staged_rows = count // w
-    out = []
-    for t in range(p.threads):
-        col, walker = (t % across) * p.vec, t // across
-        for run in range(walker, np_ * p.runs, p.walkers):
-            pl = run // p.runs
-            a = r0 + (run % p.runs) * p.run_rows
-            b = min(a + p.run_rows, r1)
-            base = pl * h - rs
-            for r in range(a, b):
-                for rr in (r - 1, r, r + 1):  # the rows the stencil reads
-                    if 0 <= rr < h:
-                        assert 0 <= base + rr < staged_rows, (block, t, r, rr)
-                out.extend((p0 + pl, r, col + i) for i in range(p.vec))
-    return out, count
+def _walk(p, bsz, ch, h, w):
+    """The kernel's index arithmetic (blur3x3_stencil), one dimension at a
+    time: the (image, row block, column block) of every CTA, the (column,
+    unit) of every thread and the rows of every run. Returns the images, the
+    rows, the columns and the (column, channel) pairs written, each with its
+    count; every row and column it reads is in the image or is padding."""
+    col_blocks, row_blocks = _ceil_div(w, p.cols), _ceil_div(h, p.rows)
+    units = ch // p.vec
+    images, rows, cols, chans = {}, {}, {}, {}
+    for block in range(p.grid):
+        cb, rest = block % col_blocks, block // col_blocks
+        rb, image = rest % row_blocks, rest // row_blocks
+        if cb == 0 and rb == 0:
+            images[image] = images.get(image, 0) + 1
+        if image == 0 and cb == 0:
+            r0, r1 = rb * p.rows, min(rb * p.rows + p.rows, h)
+            for r in range(r0, r1):
+                rows[r] = rows.get(r, 0) + 1
+        if image == 0 and rb == 0:
+            for t in range(p.threads):
+                col = cb * p.cols + t // units
+                if col >= w:
+                    continue
+                unit = t - (t // units) * units
+                if unit == 0:
+                    cols[col] = cols.get(col, 0) + 1
+                for j in range(p.vec):
+                    chans[(col, unit * p.vec + j)] = chans.get((col, unit * p.vec + j), 0) + 1
+    return images, rows, cols, chans
 
 
-def _check_plan(planes, h, w, dtype):
+def _check_plan(bsz, ch, h, w, dtype):
     es = 2 if dtype == torch.bfloat16 else 4
-    p = blur_cuda.plan(planes, h, w, dtype)
-    assert _entry_accepts(p, planes, h, w, es), p
-    groups = _ceil_div(planes, p.planes)
-    # every CTA of a group is alike but for its strip; the last group may hold
-    # fewer planes: walk one full group's strips and the last group's
-    for g in sorted({0, groups - 1}):
-        seen = []
-        for k in range(p.strips):
-            elems, count = _walk_cta(p, planes, h, w, g * p.strips + k)
-            assert count * es <= p.smem
-            seen.extend(elems)
-        np_ = min(p.planes, planes - g * p.planes)
-        want = {(g * p.planes + pl, r, c) for pl in range(np_) for r in range(h) for c in range(w)}
-        assert len(seen) == len(want) and set(seen) == want, (planes, h, w, dtype, p)
+    p = blur_cuda.plan(bsz, ch, h, w, dtype)
+    assert _entry_accepts(p, bsz, ch, h, w, es), p
+    images, rows, cols, chans = _walk(p, bsz, ch, h, w)
+    assert images == {b: 1 for b in range(bsz)}, p
+    assert rows == {r: 1 for r in range(h)}, p
+    assert cols == {c: 1 for c in range(w)}, p
+    assert chans == {(c, k): 1 for c in range(w) for k in range(ch)}, p
     return p
 
 
@@ -194,39 +201,40 @@ PLANE_SIDES = [1, 2, 4, 8, 16, 32, 64, 128, 256]
 def test_plan_covers_every_square_plane(side, dtype):
     for bsz in (1, 32, 128):
         for ch in (1, 3, 64, 512):
-            _check_plan(bsz * ch, side, side, dtype)
+            _check_plan(bsz, ch, side, side, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("hw", [(7, 9), (1, 300), (300, 1), (33, 65), (256, 24), (5, 1000),
                                 (129, 127)])
 def test_plan_covers_odd_planes(hw, dtype):
-    for planes in (1, 5, 263, 4096):
-        _check_plan(planes, *hw, dtype)
+    for bsz, ch in ((1, 1), (5, 3), (2, 131), (3, 96)):
+        _check_plan(bsz, ch, *hw, dtype)
 
 
 def test_plan_at_the_lod6_b32_planes():
-    """Wide rows take 16-byte vectors; the largest planes go in strips whose
-    halo costs under 7%, the others whole to a CTA; every launch fills the
-    card."""
+    """A pixel's channels go in 16-byte units; a CTA covers 256 threads of
+    whole pixels; the rows above and below a band cost at most 7% of its rows
+    at the two largest sites, which hold 75% of the bytes; every launch at the
+    32x32 sites and larger fills the card with 4 CTAs an SM."""
     for bsz, ch, h, w in LOD6_B32_PLANES:
         for dtype in (torch.bfloat16, torch.float32):
-            p = blur_cuda.plan(bsz * ch, h, w, dtype)
+            p = blur_cuda.plan(bsz, ch, h, w, dtype)
             es = 2 if dtype == torch.bfloat16 else 4
-            assert p.vec * es == 16 or p.vec == w
-            if p.strips > 1:
-                assert (p.rows + 2) / p.rows < 1.07
-            assert p.grid >= blur_cuda.MIN_CTAS_PER_SM * blur_cuda.H100_SMS
-            assert p.smem <= blur_cuda.TILE_BYTES
+            assert p.vec * es == 16 and p.threads == 256
+            if h >= 128:
+                assert (p.rows + 2) / p.rows <= 1.07
+            if h >= 32:
+                assert p.grid >= blur_cuda.MIN_CTAS_PER_SM * blur_cuda.H100_SMS
 
 
 def test_plan_refuses_what_does_not_fit():
     with pytest.raises(ValueError):
-        blur_cuda.plan(0, 4, 4, torch.float32)
+        blur_cuda.plan(0, 1, 4, 4, torch.float32)
     with pytest.raises(TypeError):
-        blur_cuda.plan(1, 4, 4, torch.float16)
+        blur_cuda.plan(1, 1, 4, 4, torch.float16)
     with pytest.raises(ValueError, match="threads"):
-        blur_cuda.plan(1, 4, 1025, torch.float32)  # odd width: one element a thread
+        blur_cuda.plan(1, 257, 4, 4, torch.float32)  # odd channels: one a thread
 
 
 # --- the source and the binding ---------------------------------------------
@@ -250,7 +258,7 @@ def test_binding_matches_the_c_signature():
 
     lib = Fake()
     blur_cuda._declare(lib)
-    assert len(lib.blur3x3.argtypes) == len(params) == 3 + 4 + len(blur_cuda.Plan._fields) + 1
+    assert len(lib.blur3x3.argtypes) == len(params) == 2 + 6 + len(blur_cuda.Plan._fields) + 1
 
 
 def test_first_build_compiles_the_blur_and_the_norm_together(monkeypatch):
@@ -268,12 +276,15 @@ def test_first_build_compiles_the_blur_and_the_norm_together(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_kernel_matches_conv2d_bit_for_bit_on_the_card(cuda_device, dtype):  # noqa: F811
     g = torch.Generator(device=cuda_device).manual_seed(24)
+    cl = torch.channels_last
     for shape in LOD6_B32_PLANES:
         x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
         dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
-        y, dx = _grads(lambda t: style_nets.blur3x3(t, "cuda"), x, dy)
-        y_ref, dx_ref = _grads(blur.blur3x3_plain, x, dy)
+        y, dx = _grads(lambda t: style_nets.blur3x3(t, "cuda"), x.contiguous(memory_format=cl),
+                       dy.contiguous(memory_format=cl))
+        y_ref, dx_ref = _grads(blur.blur3x3_plain, x, dy)  # ATen's depthwise kernels, NCHW
         torch.cuda.synchronize()
+        assert y.is_contiguous(memory_format=cl) and dx.is_contiguous(memory_format=cl)
         assert torch.equal(y, y_ref), (shape, dtype, int((y != y_ref).sum()))
         assert torch.equal(dx, dx_ref), (shape, dtype, int((dx != dx_ref).sum()))
         del x, dy, y, dx, y_ref, dx_ref

@@ -9,19 +9,28 @@ blended path (blend 0.6), generator with noise_mode "none" (the
 deterministic correction; the noise path draws random planes, which the two
 packages draw differently). Tolerance rtol 1e-4, atol 1e-5: f32 sums
 (convolutions, moments) are taken in another order.
+
+The nets run channels-last: an intro step at LOD 2, stable and blended, on
+the plain route, hands every convolution a channels-last input and copies no
+norm or blur input into that layout (``relayouts`` stays 0); and the step
+from an NCHW batch agrees with the step from the same batch channels-last.
 """
+
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from soft_intro_vae_tpu.train.style_step import StyleModel as JaxStyleModel
 from soft_intro_vae_tpu.train.style_step import StyleModelConfig as JaxStyleModelConfig
 from soft_intro_vae_torch.models import lreq
 from soft_intro_vae_torch.models.style import blur3x3, downscale2d, upscale2d
-from soft_intro_vae_torch.train.style_step import StyleModel, StyleModelConfig
+from soft_intro_vae_torch.ops import adain, blur
+from soft_intro_vae_torch.train.style_step import (
+    StyleModel, StyleModelConfig, StyleStepConfig, StyleTrainState, build_style_steps)
 from soft_intro_vae_torch.utils.from_jax import style_state_dict_from_jax
 from tests.torch_port_fixtures import one_torch_thread  # noqa: F401
 
@@ -185,3 +194,77 @@ def test_bfloat16_against_the_jax_package(pair, net, rtol):
         with torch.no_grad():
             got = nets.decoder(torch.tensor(styles), 1, None, "none").numpy()
     assert np.abs(got - want).max() <= rtol * np.abs(want).max()
+
+
+# --- the channels-last layout -----------------------------------------------
+
+STEP_KW = dict(layer_count=3, startf=4, maxf=16, latent_size=16, mapping_layers=2,
+               style_mixing_prob=0.9)
+
+
+def _intro_state_and_step(blended, dtype="float32"):
+    model = StyleModel(StyleModelConfig(compute_dtype=dtype, **STEP_KW))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        nets = model.make_nets()
+    state = StyleTrainState.create(nets, device=torch.device("cpu"), seed=1, lr=1e-3,
+                                   ema_beta=0.9)
+    _, intro = build_style_steps(model, StyleStepConfig(latent_size=16), 2, blended)
+    return state, intro
+
+
+def _batch(seed=5):
+    """A (2, 3, 16, 16) batch as the feed makes it: the (B, C, H, W) view of NHWC."""
+    rs = np.random.RandomState(seed)
+    nhwc = torch.tensor(rs.rand(2, 16, 16, 3).astype(np.float32) * 2 - 1)
+    return nhwc.permute(0, 3, 1, 2)
+
+
+class _ConvInputs(TorchDispatchMode):
+    """Records whether each aten.convolution's input is channels-last."""
+
+    def __init__(self):
+        super().__init__()
+        self.layouts = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.convolution.default:
+            x = args[0]
+            self.layouts.append((tuple(x.shape),
+                                 x.is_contiguous(memory_format=torch.channels_last)))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("blended", [False, True], ids=["lod2", "lod2-blended"])
+def test_the_intro_step_runs_channels_last(blended):
+    state, intro = _intro_state_and_step(blended)
+    x = _batch()
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    before = (dict(adain.relayouts), dict(blur.relayouts))
+    with _ConvInputs() as mode:
+        _, mets = intro(state, x, torch.tensor(0.6))
+    assert mode.layouts and all(cl for _, cl in mode.layouts), [
+        shape for shape, cl in mode.layouts if not cl]
+    # every norm and blur input (and gradient) arrived channels-last: no copies
+    assert (dict(adain.relayouts), dict(blur.relayouts)) == before
+    assert all(torch.isfinite(v) for v in mets.values())
+
+
+@pytest.mark.parametrize("blended", [False, True], ids=["lod2", "lod2-blended"])
+def test_the_step_from_nchw_and_channels_last_batches_agree(blended):
+    runs = []
+    for x in (_batch().contiguous(), _batch()):
+        state, intro = _intro_state_and_step(blended)
+        before = {k: v.clone() for k, v in state.nets.state_dict().items()}
+        state, mets = intro(state, x, torch.tensor(0.6))
+        change = {k: state.nets.state_dict()[k] - before[k] for k in before}
+        moments = [v.clone() for opt in (state.opt_e, state.opt_d) for v in opt.nu]
+        runs.append((mets, change, moments))
+    (ma, ca, va), (mb, cb, vb) = runs
+    for k in ma:
+        torch.testing.assert_close(ma[k], mb[k], rtol=1e-5, atol=1e-6, msg=k)
+    # Adam's second moments hold the gradients' squares
+    for a, b in zip(va, vb):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-10)
+    for k in ca:
+        torch.testing.assert_close(ca[k], cb[k], rtol=1e-4, atol=1e-7, msg=k)

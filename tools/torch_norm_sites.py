@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """The fused-norm kernels of the PyTorch port, site by site, on the GPU.
 
-    python3 tools/torch_norm_sites.py [--root DIR] [--iters 20]
+    python3 tools/torch_norm_sites.py [--root DIR] [--iters 20] [--batch 4]
 
 Times the hand-written forward and backward kernels (ops/adain_cuda.py) at
 every norm site of the style model at ffhq256 width and LOD 6 (256x256,
-batch 4), each in the mode the intro step runs it there (encoder: plain,
+batch ``--batch``), each in the mode the intro step runs it there (encoder: plain,
 eps 1e-5; decoder: noise + AdaIN, eps 1e-8), in bf16 and f32. Each time is
 the device's: CUDA events over ``--iters`` launches after 3 warm-up
 launches, queued behind a sleep kernel so that the wrapper's host time does
@@ -149,12 +149,13 @@ def _inputs(gen, shape, mode, affine, dtype, device):
 
     bsz, ch, h, w = shape
     f32 = dict(generator=gen, device=device, dtype=torch.float32)
-    x = (2.0 * torch.randn(shape, **f32) + 0.3).to(dtype)
+    cl = torch.channels_last  # the kernels' layout
+    x = (2.0 * torch.randn(shape, **f32) + 0.3).to(dtype).contiguous(memory_format=cl)
     g = torch.randn((bsz, ch), **f32) + 1.0 if affine else None
     b = torch.randn((bsz, ch), **f32) if affine else None
     n = torch.randn((bsz, h, w), **f32) if mode == "noise" else None
     nw = torch.randn((ch,), **f32) if mode == "noise" else None
-    dy = torch.randn(shape, **f32).to(dtype)
+    dy = torch.randn(shape, **f32).to(dtype).contiguous(memory_format=cl)
     dm, dv = torch.randn((bsz, ch), **f32), torch.randn((bsz, ch), **f32)
     return (x, torch.randn((ch,), **f32), g, b, n, nw), (dy, dm, dv)
 
@@ -221,6 +222,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=ROOT, help="checkout whose soft_intro_vae_torch is timed")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
     args = ap.parse_args(argv)
 
     import torch
@@ -243,7 +245,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     adain_cuda.load()
     build_s = time.perf_counter() - t0
-    mix = step_mix(6, 4)
+    mix = step_mix(6, args.batch)
     rate = memory_rate(torch.cuda.get_device_name(0))
     rows, totals = time_sites(device, mix, rate, args.iters)
     floor = copy_floor(device, rate, args.iters)
