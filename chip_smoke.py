@@ -103,6 +103,14 @@ Phases, each printing one line; any failure exits non-zero:
               transposes (``nchwToNhwc``/``nhwcToNchw`` kernels) per graphed
               step from a torch.profiler pass over two calls, held to 0 (the
               trace held to one u8norm launch a step);
+ 10b. train folder: ``train_soft_intro_vae`` at the celeb256 recipe's width
+              (channels 64-512 in six stages, 256x256, z 256, batch 8, beta_neg
+              1024, f32 with TF32 off, the CLI's mirror) for one intro epoch
+              over 64 seeded JPEG files streamed by ``FolderDataset`` (the
+              residency bound set to 0): one ``feed.decode`` span a batch, the
+              folder's counters held to the files of the epoch's batches,
+              u8norm launches to the steps; the decode's ms a batch, the
+              epoch's seconds and the peak memory;
  11. routes image: one intro step through the kernel and through the plain
               normalize, from the same weights, draws and uint8 batch;
  11b. graph image: 16 intro steps as two graph calls of 8 against 16 eager
@@ -2497,6 +2505,68 @@ def phase_train_image(device, card: str, results_dir: str):
     return cfg, counts, times1
 
 
+FOLDER_N = 64          # JPEG files of the folder phase: 8 batches of the celeb256 recipe
+
+
+def phase_train_folder(device, card: str, results_dir: str):
+    """The image trainer on the celeb256 recipe, fed out of core: one intro
+    epoch over FOLDER_N seeded 256x256 JPEG files through ``FolderDataset``
+    with the host mirror; its decode spans and counters read."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from soft_intro_vae_torch.data.images import DATASETS, FolderDataset, open_image_folder
+    from soft_intro_vae_torch.train.image import train_soft_intro_vae
+    from soft_intro_vae_torch.utils import profiling
+
+    spec = DATASETS["celeb256"]
+    folder = os.path.join(results_dir, "celeb256")
+    os.makedirs(folder)
+    rng = np.random.default_rng(29)
+    for i in range(FOLDER_N):  # smooth blobs plus noise, as SyntheticImages
+        base = rng.integers(0, 224, (8, 8, 3), dtype=np.uint8)
+        img = np.kron(base, np.ones((32, 32, 1), np.uint8)) + rng.integers(0, 32, (256, 256, 3),
+                                                                           dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(folder, f"{i:05d}.jpg"), quality=95)
+    ds = open_image_folder(folder, spec.image_size, seed=0, max_resident_bytes=0, storage="uint8")
+    check(isinstance(ds, FolderDataset), f"the folder opened as {type(ds).__name__}")
+    cfg = image_config(device, results_dir, dataset="celeb256", z_dim=256, batch_size=8,
+                       beta_kl=0.5, beta_neg=1024.0, num_epochs=1, num_vae=0,
+                       mirror_augment=True, matmul_precision="float32")
+    steps = FOLDER_N // cfg.batch_size
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0_ns = time.perf_counter_ns()
+    state, summary = train_soft_intro_vae(cfg, ds, spec)
+    torch.cuda.synchronize()
+    run_s = (time.perf_counter_ns() - t0_ns) / 1e9
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    decodes = [s for s in profiling.spans(t0_ns) if s.name == "feed.decode"]
+    counts = read_counts()
+    check(summary["steps"] == state.step == steps and counts["u8norm"] == steps,
+          f"folder run: {summary['steps']} steps, u8norm launches {counts['u8norm']}, "
+          f"expected {steps}")
+    check([s.batch for s in decodes] == list(range(steps)),
+          f"feed.decode spans of batches {[s.batch for s in decodes]}, expected 0..{steps - 1}")
+    files = sorted(os.listdir(folder))
+    check(ds.decoded_images == FOLDER_N and ds.decoded_bytes == sum(
+        os.path.getsize(os.path.join(folder, f)) for f in files),
+          f"folder counters: {ds.decoded_images} images, {ds.decoded_bytes} bytes")
+    check(all(math.isfinite(v) for v in summary["last_metrics"].values()),
+          f"non-finite folder metrics: {summary['last_metrics']}")
+    decode_ms = sorted(s.dur_ns / 1e6 for s in decodes)
+    del state
+    print(f"train folder: celeb256 recipe width (channels {'/'.join(map(str, spec.channels))}, "
+          f"256x256, z 256, batch 8, beta_neg 1024, f32, mirror) from {FOLDER_N} JPEG files "
+          f"({ds.decoded_bytes / FOLDER_N / 1e3:.1f} KB each) through FolderDataset: {steps} "
+          f"intro steps in {run_s:.2f} s (warm-up and capture included), peak "
+          f"{peak:.3f} GiB; feed.decode spans one a batch, {decode_ms[len(decode_ms) // 2]:.2f} ms "
+          f"median ({decode_ms[0]:.2f}-{decode_ms[-1]:.2f}) over {cfg.batch_size} files; "
+          f"counters {ds.decoded_images} images, {ds.decoded_bytes} bytes; on {card}",
+          flush=True)
+
+
 def phase_image_routes(device, cfg):
     """One f32 intro step through the u8norm kernel against one through its
     plain version: same weights, draws and uint8 batch; TF32 off, cuDNN
@@ -4048,6 +4118,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         cfg_image, counts_image, _ = phase_train_image(device, card, results_dir)
     phase_image_routes(device, dataclasses.replace(cfg_image, scan_steps=1))
+    with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
+        phase_train_folder(device, card, results_dir)
     lap("image")
     phase_graph_image(device)
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:

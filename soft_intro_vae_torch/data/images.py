@@ -1,7 +1,8 @@
 """Image data layer: dataset registry, disk loaders, synthetic fallback.
 
-A numpy-only copy of soft_intro_vae_tpu/data/images.py, so the port feeds
-its steps the same batches as the JAX package for the same seed and epoch.
+A numpy copy of soft_intro_vae_tpu/data/images.py, so the port feeds its
+steps the same batches as the JAX package for the same seed and epoch; the
+out-of-core folder's decode is a span of the port's tracing.
 Reference: the dataset selection table (soft_intro_vae/
 train_soft_intro_vae.py:376-440) and ImageDatasetFromFile (soft_intro_vae/
 dataset.py:50-93).
@@ -23,6 +24,8 @@ import pickle
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+
+from soft_intro_vae_torch.utils.profiling import span
 
 
 def to_unit_float(batch: np.ndarray) -> np.ndarray:
@@ -210,6 +213,11 @@ class FolderDataset:
 
     Iteration interface and (seed, epoch_index) determinism match
     ``ArrayDataset.epoch`` exactly, so every trainer accepts either.
+
+    Each batch's decode (the pool's reads and decodes of its files and the
+    stack) is a ``feed.decode`` span (utils/profiling.py), the batch's index
+    in its epoch its ``batch``; ``decoded_images`` and ``decoded_bytes``
+    count the images decoded and their files' bytes.
     """
 
     def __init__(self, files, output_size: int, input_size: Optional[int] = None,
@@ -230,6 +238,8 @@ class FolderDataset:
         self._workers = max(1, workers)
         self._pool = None  # lazily created; kept for the dataset's lifetime
         self._dtype = np.uint8 if dtype == "uint8" else np.float32
+        self.decoded_images = 0
+        self.decoded_bytes = 0
 
     def __len__(self) -> int:
         return len(self.files)
@@ -269,13 +279,16 @@ class FolderDataset:
         idx = rng.permutation(n) if shuffle else np.arange(n)
         end = n - (n % batch_size) if drop_last else n
         pool = self._ensure_pool()
-        for i in range(0, end, batch_size):
+        for b, i in enumerate(range(0, end, batch_size)):
             take = idx[i : i + batch_size]
             if rows is not None and self.augment_fn is None:
                 take = take[rows]
             paths = [self.files[j] for j in take]
-            imgs = list(pool.map(self._decode, paths)) if pool else [self._decode(p) for p in paths]
-            batch = np.stack(imgs)
+            with span("feed.decode", batch=b):
+                batch = np.stack(list(pool.map(self._decode, paths)) if pool
+                                 else [self._decode(p) for p in paths])
+            self.decoded_images += len(paths)
+            self.decoded_bytes += sum(os.path.getsize(p) for p in paths)
             if self.augment_fn is not None:
                 batch = self.augment_fn(batch, rng)
                 batch = batch if rows is None else batch[rows]

@@ -57,7 +57,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -175,6 +175,21 @@ def fires(cur_iter: int, k: int, every: int) -> bool:
     return (cur_iter + k - 1) // every != (cur_iter - 1) // every
 
 
+def host_batches(dataset, cfg: ImageConfig, epoch: int,
+                 rows: slice = slice(None)) -> Iterator[np.ndarray]:
+    """The host batches of one epoch, in order: the dataset's epoch of
+    ``cfg.batch_size`` shuffled by ``(seed, epoch)`` (the last partial batch
+    dropped), this rank's ``rows`` of each, and with ``cfg.mirror_augment``
+    each image flipped left-right at random (``augment_mirror``, its draws
+    from ``np.random.default_rng((max(cfg.seed, 0) + 1, epoch))`` over the
+    whole batch, so every rank's stay in step). Shuffle and flips are a pure
+    function of the epoch, as in the JAX trainer: a resumed run replays
+    them."""
+    aug_rng = np.random.default_rng((max(cfg.seed, 0) + 1, epoch))
+    for batch in dataset.epoch(cfg.batch_size, drop_last=True, epoch_index=epoch, rows=rows):
+        yield augment_mirror(batch, aug_rng, rows, cfg.batch_size) if cfg.mirror_augment else batch
+
+
 @torch.no_grad()
 def sync_target_decoder(state: TrainState) -> TrainState:
     """Bootstrap weight sync, target <- online (bootstrap:680-682): a copy of
@@ -237,7 +252,6 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
     verbose = cfg.verbose and is_primary()
     lr_e_sched = optim.multistep_lr(cfg.lr_e, (350,), 0.1)
     lr_d_sched = optim.multistep_lr(cfg.lr_d, (350,), 0.1)
-    aug_seed = max(cfg.seed, 0) + 1  # per-epoch reseeded: a resumed run replays its draws
     put_fn = device_put_fn(state.device)
 
     fid_fn = None
@@ -283,20 +297,11 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
             if state.device.type == "cuda":
                 torch.cuda.empty_cache()
 
-        def host_batches(epoch=epoch):
-            # (seed, epoch) seeding: shuffle and augment draws are a pure
-            # function of the epoch, as in the JAX trainer
-            aug_rng = np.random.default_rng((aug_seed, epoch))
-            for batch in dataset.epoch(cfg.batch_size, drop_last=True, epoch_index=epoch,
-                                       rows=mine):
-                yield (augment_mirror(batch, aug_rng, mine, cfg.batch_size) if cfg.mirror_augment
-                       else batch)
-
-        def host_chunks():
+        def host_chunks(epoch=epoch):
             # scan_steps batches stacked into one (K, B, H, W, C) transfer; a
             # short trailing chunk replays the same graph fewer times
             buf = []
-            for batch in host_batches():
+            for batch in host_batches(dataset, cfg, epoch, mine):
                 buf.append(batch)
                 if len(buf) == cfg.scan_steps:
                     yield np.stack(buf)
@@ -306,7 +311,8 @@ def train_soft_intro_vae(cfg: ImageConfig, dataset=None,
 
         scan = cfg.scan_steps > 1
         device_metrics = []
-        for x in device_prefetch(host_chunks() if scan else host_batches(), size=2, put_fn=put_fn):
+        batches = host_chunks() if scan else host_batches(dataset, cfg, epoch, mine)
+        for x in device_prefetch(batches, size=2, put_fn=put_fn):
             k = int(x.shape[0]) if scan else 1
             state, m = step_fn(state, x)
             device_metrics.append(m)

@@ -19,6 +19,10 @@ or taken out of its parent's time by one:
 
   * ``feed.produce`` (prefetch worker): one ``next`` of the host batches
     (read, decode, downscale, shuffle, flip), batch = the worker's count;
+  * ``feed.decode`` (inside ``feed.produce``): an out-of-core folder's
+    decode of one batch (data/images.py ``FolderDataset``: the thread
+    pool's reads and decodes of the batch's files and their stack), batch =
+    the batch's index in its epoch;
   * ``feed.put`` (prefetch worker): the put of that batch (the copy into a
     pinned buffer, the style feed's host side), same batch;
   * ``feed.slot_wait`` (inside ``feed.put``): the wait for a pinned buffer's

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's image intro step goes on the GPU.
 
-    python3 tools/torch_profile_image.py [--steps 10] [--scan-steps K] [--root DIR] [--out FILE]
+    python3 tools/torch_profile_image.py [--recipe cifar10|celeb256] [--steps 10]
+                                         [--scan-steps K] [--root DIR] [--out FILE]
 
 Builds the image trainer of soft_intro_vae_torch at the CIFAR-10 recipe
 (bench.py's: channels 64/128/256, 32x32, z 128, batch 32, beta_rec/beta_kl/
-beta_neg 1/1/256, float32), feeds it resident uint8 batches (normalized in the
-step by the u8norm kernel), warms up, times ``--steps`` intro steps on the
+beta_neg 1/1/256, float32 with PyTorch's TF32 defaults) or, with ``--recipe
+celeb256``, the CelebA-HQ 256 recipe (channels 64-512 in six stages,
+256x256, z 256, batch 8, beta_rec/beta_kl/beta_neg 1/0.5/1024, float32 with
+TF32 off, as its benchmark cell runs), feeds it resident uint8 batches
+(normalized in the step by the u8norm kernel), warms up, times ``--steps`` intro steps on the
 host clock (ending in a synchronise), then traces as many with torch.profiler.
 The steps are CUDA graph replays (train/graph.py), and the kernels the
 replays launch are traced like any other. At the default ``--scan-steps 1``
@@ -85,8 +89,18 @@ def device_us(evt) -> float:
     return 0.0
 
 
+# the recipes' trainer settings (the dataset names the widths in the registry)
+RECIPES = {
+    "cifar10": dict(dataset="cifar10", z_dim=128, batch_size=32, beta_rec=1.0, beta_kl=1.0,
+                    beta_neg=256.0),
+    "celeb256": dict(dataset="celeb256", z_dim=256, batch_size=8, beta_rec=1.0, beta_kl=0.5,
+                     beta_neg=1024.0, matmul_precision="float32"),
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--recipe", choices=sorted(RECIPES), default="cifar10")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--scan-steps", type=int, default=1, help="K steps a call (a CUDA graph)")
     ap.add_argument("--root", default=ROOT, help="checkout whose soft_intro_vae_torch is profiled")
@@ -115,11 +129,11 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; package {root}")
-    spec = DATASETS["cifar10"]
+    recipe = RECIPES[args.recipe]
+    spec = DATASETS[recipe["dataset"]]
     scan = args.scan_steps
     kw = dict(scan_steps=scan) if scan > 1 else {}
-    cfg = ImageConfig(dataset="cifar10", z_dim=128, batch_size=32, beta_rec=1.0, beta_kl=1.0,
-                      beta_neg=256.0, gamma_r=1e-8, seed=0, device="cuda", **kw)
+    cfg = ImageConfig(**recipe, gamma_r=1e-8, seed=0, device="cuda", **kw)
     rng = np.random.default_rng(5)
     shape = ((scan,) if scan > 1 else ()) + (cfg.batch_size, spec.image_size, spec.image_size,
                                               spec.cdim)
@@ -127,7 +141,7 @@ def main(argv=None) -> int:
                for _ in range(4)]
     calls = -(-args.steps // scan)
     n = calls * scan
-    out, tables = {"card": card, "scan_steps": scan}, {}
+    out, tables = {"card": card, "recipe": args.recipe, "scan_steps": scan}, {}
     for route in ("graphed", "eager") if scan == 1 else ("graphed",):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -180,8 +194,11 @@ def main(argv=None) -> int:
             fam_launches[family(name)] += launches[name]
         transposes = {k: (ms / n, launches[k] / n) for k, ms in kernels.items()
                       if any(t in k.lower() for t in TRANSPOSES)}
-        print(f"image intro step, {route}, CIFAR-10 recipe (32x32, channels 64/128/256, batch "
-              f"32, z 128, f32, uint8 resident), scan_steps {scan}: {ms_step:.3f} ms/step "
+        print(f"image intro step, {route}, {args.recipe} recipe ({spec.image_size}x"
+              f"{spec.image_size}, channels {'/'.join(map(str, spec.channels))}, batch "
+              f"{cfg.batch_size}, z {cfg.z_dim}, f32, TF32 "
+              f"{'off' if cfg.matmul_precision == 'float32' else 'on for cuDNN'}, uint8 "
+              f"resident), scan_steps {scan}: {ms_step:.3f} ms/step "
               f"untraced, {traced_ms / n:.3f} ms/step traced; "
               f"device busy {busy_ms / n:.3f} ms/step, idle share {1 - busy_ms / traced_ms:.3f} "
               f"of the traced window, {1 - busy_ms / n / ms_step:.3f} of the untraced step; "
