@@ -19,6 +19,11 @@ Phases, each printing one line; any failure exits non-zero:
               bit-equal); the blur forward and backward on channels-last
               tensors against F.conv2d's on NCHW copies at every LOD-6 b32
               site, f32 and bf16, bit-equal, timed at the two largest sites;
+              the float32 conv kernels (fprop, dgrad, split-K wgrad) at
+              every conv shape class of the two image cells against
+              float64, two runs bit-equal, timed beside their FFMA bound,
+              cuDNN under its heuristics (the port's route before them)
+              and cuDNN in NHWC and NCHW with and without cudnn.benchmark;
   4. train 3d: ``train_soft_intro_vae_3d`` at the full width of
               configs/soft_intro_vae_hp.json (2048 points, batch 32, z 128) on
               synthetic clouds for one intro epoch plus the valid JSD, each
@@ -111,6 +116,10 @@ Phases, each printing one line; any failure exits non-zero:
               folder's counters held to the files of the epoch's batches,
               u8norm launches to the steps; the decode's ms a batch, the
               epoch's seconds and the peak memory;
+ 10c. conv step: the celeb256 intro step with TF32 off: every conv on the
+              float32 conv kernels, none on cuDNN; 6 graphed steps against
+              6 eager steps and a second graphed run, bit-equal; no cuDNN
+              convolution, FFT or transpose in the replays' trace;
  11. routes image: one intro step through the kernel and through the plain
               normalize, from the same weights, draws and uint8 batch;
  11b. graph image: 16 intro steps as two graph calls of 8 against 16 eager
@@ -460,17 +469,17 @@ def phase_build() -> str:
     """nvcc builds every kernel library of the checkout, one process per source,
     all started together."""
     from soft_intro_vae_torch.ops import (
-        adain_cuda, blur_cuda, chamfer_cuda, cuda_build, u8norm_cuda)
+        adain_cuda, blur_cuda, chamfer_cuda, conv_f32_cuda, cuda_build, u8norm_cuda)
 
     t0 = time.perf_counter()
-    libs = (chamfer_cuda, adain_cuda, blur_cuda, u8norm_cuda)
+    libs = (chamfer_cuda, adain_cuda, blur_cuda, u8norm_cuda, conv_f32_cuda)
     paths = cuda_build.build_many([lib.spec() for lib in libs])
     for lib in libs:
         lib.load()
     parts = [f"{os.path.basename(lib.spec()[0])}: {cuda_build.ptxas_summary(path)}"
              for lib, path in zip(libs, paths)]
-    return (f"build: chamfer_nearest.cu, bias_act_norm.cu, blur3x3.cu and u8norm.cu in "
-            f"{time.perf_counter() - t0:.2f} s (in parallel); " + " || ".join(parts))
+    return (f"build: chamfer_nearest.cu, bias_act_norm.cu, blur3x3.cu, u8norm.cu and conv_f32.cu "
+            f"in {time.perf_counter() - t0:.2f} s (in parallel); " + " || ".join(parts))
 
 
 # fused-norm cases: the ffhq256 LOD-6 extremes and an odd shape, in every mode
@@ -887,8 +896,191 @@ def phase_blur(device, peaks):
     return record
 
 
+CONV_RECIPES = ("celeb256", "cifar10")  # tools/torch_conv_f32_times.py RECIPES: the image cells'
+CONV_ITERS = 5
+
+
+def phase_conv(device, peaks):
+    """The float32 conv kernels (ops/conv_f32_cuda.py: fprop, dgrad = fprop on
+    the flipped weight, split-K wgrad) at every conv shape class of the two
+    image cells' nets (tools/torch_conv_f32_times.py): each direction against
+    float64 within ``TOLERANCE`` of the largest value (float32 sums in
+    another order; cuDNN's float32 error beside it) and two runs bit-equal;
+    device times beside the bound (the FLOPs at the card's float32 peak),
+    the plain route (F.conv2d on NHWC operands, cuDNN under its heuristics:
+    the port's route before the kernels) and the library (cuDNN at TF32 off
+    in NHWC and NCHW, under its heuristics and under ``cudnn.benchmark``; the
+    port never calls it on this route); totals over one forward and one
+    backward of each net."""
+    import collections
+
+    import torch
+
+    from soft_intro_vae_torch.ops import conv_f32_cuda, cuda_build
+    from tools import torch_conv_f32_times as ct
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(30)
+    totals, worst, top, lines = {}, {}, None, []
+    with no_tf32():
+        for recipe in CONV_RECIPES:
+            calls = collections.Counter(ct.net_shapes(*ct.RECIPES[recipe]))
+            tot = collections.defaultdict(float)
+            for s, n in calls.items():
+                errs, operands = ct.check_shape(s, device, gen)
+                for d, e in errs.items():
+                    check(e["err"] <= ct.TOLERANCE and e["bit_equal"],
+                          f"conv kernel {recipe} {s.label()} {d}: error {e['err']:.3g} "
+                          f"(cuDNN f32 {e['cudnn_err']:.3g}), two runs bit-equal {e['bit_equal']}")
+                    worst[d] = max(worst.get(d, 0.0), e["err"])
+                times = ct.time_shape(s, operands, CONV_ITERS, True)
+                del operands
+                bound = s.flops() / peaks[0] * 1e3
+                for d, t in times.items():
+                    for k, v in t.items():
+                        tot[f"{k}_ms"] += n * v
+                    tot["bound_ms"] += n * bound
+                if recipe == "celeb256" and (s.cin, s.cout, s.h, s.k) == (64, 64, 256, 3):
+                    top = (s, times, bound)
+            torch.cuda.empty_cache()
+            totals[recipe] = dict(tot)
+            lines.append(f"{recipe} ({sum(calls.values())} convs, {len(calls)} shape classes): "
+                         + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()))
+    s, times, bound = top
+    path = cuda_build.library_path(*conv_f32_cuda.spec())
+    record = {
+        "name": "conv_f32",
+        "route": "cuda",
+        "source": "soft_intro_vae_torch/ops/csrc/conv_f32.cu",
+        "replaces": "no TPU kernel: XLA's convolutions, soft_intro_vae_tpu/models/conv.py",
+        "launches": None,  # filled from the conv step phase
+        "max_rel_err": max(worst.values()),
+        "ms": times["fprop"]["kernel"],
+        "dgrad_ms": times["dgrad"]["kernel"],
+        "wgrad_ms": times["wgrad"]["kernel"],
+        "bound_ms": bound,
+        "bound_by": "FFMA",
+        "plain_ms": times["fprop"]["cudnn_nhwc"],
+        "library_ms": min(v for k, v in times["fprop"].items() if k != "kernel"),
+        "shape": [s.b, s.cin, s.h, s.w, s.cout, s.k],
+        "dtype": "float32",
+        "totals_ms": totals,
+    }
+    print(f"kernels: conv_f32 fprop, dgrad and wgrad at every conv shape class of "
+          f"{' and '.join(CONV_RECIPES)}, TF32 off: within {ct.TOLERANCE:g} of float64 (largest "
+          f"error " + ", ".join(f"{d} {v:.2e}" for d, v in worst.items()) + "), two runs "
+          f"bit-equal; at {s.label()}: fprop {times['fprop']['kernel']:.4f}, dgrad "
+          f"{times['dgrad']['kernel']:.4f}, wgrad {times['wgrad']['kernel']:.4f} ms against a bound "
+          f"of {bound:.4f} ms each; cuDNN fprop " + ", ".join(
+              f"{k} {v:.4f}" for k, v in times["fprop"].items() if k != "kernel")
+          + "; device ms over one forward and one backward of each net: " + "; ".join(lines)
+          + f"; ptxas: {cuda_build.ptxas_summary(path)}", flush=True)
+    return record
+
+
+# cuDNN's convolution kernels, its FFT path and its layout transposes
+# (lower-case substrings of kernel names), none of which the image step runs
+# on the kernels' route; cuBLAS's GEMMs (the nets' Linear layers) and cuDNN's
+# batch norm stay
+CUDNN_CONV = ("fprop", "dgrad", "wgrad", "fft", "complex", "cf32", "convolve", "implicit",
+              "winograd", "conv2d", "nchwtonhwc", "nhwctonchw")
+
+
+def phase_conv_step(device, card: str):
+    """The celeb256 recipe's intro step (channels 64-512, 256x256, batch 8,
+    f32) with TF32 off: every conv on the kernels (``ops/conv_f32.py
+    routes``), none on cuDNN; 6 steps through the trainer's single-step
+    graph (3 eager warm-up steps, a capture, replays) against 6 eager steps
+    from the same seed, and against a second graphed run, bit for bit; the
+    replays' trace holds the conv kernels and no cuDNN convolution, FFT or
+    layout transpose; ms a step, graphed."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from soft_intro_vae_torch.data.images import DATASETS
+    from soft_intro_vae_torch.ops import conv_f32
+    from soft_intro_vae_torch.train.image import build_image_training
+
+    spec = DATASETS["celeb256"]
+    cfg = image_config(device, "", dataset="celeb256", z_dim=256, batch_size=8, beta_kl=0.5,
+                       beta_neg=1024.0, matmul_precision="float32")
+    rng = np.random.default_rng(31)
+    xs = [torch.from_numpy(rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)).to(device)
+          for _ in range(3)]
+
+    def run(route: str, steps: int = 6):
+        state, _, intro = build_image_training(cfg, spec)
+        step = intro if route == "graphed" else intro.eager
+        metrics = None
+        for i in range(steps):
+            state, metrics = step(state, xs[i % 3])
+        torch.cuda.synchronize()
+        return (state, metrics), intro
+
+    t0 = time.perf_counter()
+    with exact_routes():
+        conv_f32.routes.clear()
+        conv_f32.relayouts.clear()
+        reset_counts()
+        graphed, intro = run("graphed")
+        counts, captured = read_counts(), captured_counts()
+        routes, relayouts = dict(conv_f32.routes), dict(conv_f32.relayouts)
+        eager, _ = run("eager")
+        again, _ = run("graphed")
+        results = [compare_runs(graphed, eager), compare_runs(graphed, again)]
+        state = graphed[0]
+        for _ in range(2):
+            state, _ = intro(state, xs[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(2):
+                state, _ = intro(state, xs[i])
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(5):
+            state, _ = intro(state, xs[i % 3])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / 5
+    for (differ, worst, compared), what in zip(results, ("eager steps", "a second graphed run")):
+        check(not differ, f"celeb256 graphed steps against {what}, TF32 off: {len(differ)} of "
+              f"{compared} tensors differ (first {differ[:6]}), max |diff| {worst!r}")
+    n_convs = sum(isinstance(m, torch.nn.Conv2d) for m in graphed[0].model.modules())
+    check(set(routes) == {"kernel"} and routes["kernel"] >= n_convs,
+          f"celeb256 convs by route {routes}: all must take the kernels")
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation}
+    ours = {n for n in names if "conv_f32_" in n}
+    cudnn = sorted(n for n in names if "conv_f32_" not in n
+                   and any(c in n.lower() for c in CUDNN_CONV))
+    check(ours and not cudnn, f"celeb256 replays' conv kernels: ours {len(ours)}, cuDNN {cudnn}")
+    conv = {k: v for k, v in counts.items() if k.startswith("conv_f32_")}
+    check(all(conv.get(k, 0) > 0 for k in ("conv_f32_fprop", "conv_f32_wgrad", "conv_f32_flip")),
+          f"conv kernel launches in 6 steps: {conv}")
+    del graphed, eager, again, state, intro
+    torch.cuda.empty_cache()
+    print(f"conv step: celeb256 intro step, TF32 off, cuDNN deterministic: convs by route "
+          f"{routes} in 6 steps (3 eager warm-up steps and a capture record them), operands "
+          f"copied into channels-last {relayouts or 'none'}; 6 graphed "
+          f"steps bit-equal to 6 eager steps and to a second graphed run ({results[0][2]} "
+          f"tensors each); device launches {conv}, recorded in the capture "
+          f"{ {k: v for k, v in captured.items() if k.startswith('conv_f32_')} }; the replays' "
+          f"trace: {len(ours)} conv_f32 kernels, no cuDNN convolution, FFT or transpose; "
+          f"{ms:.2f} ms a graphed step; {time.perf_counter() - t0:.1f} s; on {card}", flush=True)
+    return conv
+
+
+def without_convs(counts: dict) -> dict:
+    """``counts`` less the float32 conv kernels, which the image nets launch
+    with TF32 off (phase_conv_step reads those): under ``no_tf32``, and in
+    every phase after the folder phase, whose ``matmul_precision`` "float32"
+    turns TF32 off for the process."""
+    return {k: v for k, v in counts.items() if not k.startswith("conv_f32_")}
+
+
 # the hand-written kernels' names in ops/cuda_build.py ``launches``
-KERNELS = ("chamfer_nearest", "bias_act_norm_fwd", "bias_act_norm_bwd", "u8norm", "blur3x3")
+KERNELS = ("chamfer_nearest", "bias_act_norm_fwd", "bias_act_norm_bwd", "u8norm", "blur3x3",
+           "conv_f32_fprop", "conv_f32_wgrad", "conv_f32_reduce", "conv_f32_flip")
 
 
 def relayouts() -> dict:
@@ -1368,7 +1560,7 @@ def phase_graph_image(device):
     with exact_routes():
         graph_run, eager_run, counts, captured = graph_against_eager(build, xs, IMAGE_SCAN)
     differ, worst, compared = compare_runs(graph_run, eager_run)
-    check(counts["u8norm"] == n and captured == {"u8norm": 1},
+    check(counts["u8norm"] == n and without_convs(captured) == {"u8norm": 1},
           f"image K-step run: device launches {counts}, captured {captured}")
     check(not differ, f"image K-step graph against eager steps: {len(differ)} of {compared} "
           f"tensors differ (first {differ[:6]}), max |diff| {worst!r}")
@@ -1390,8 +1582,8 @@ def phase_graph_image(device):
             graph_run, eager_run, counts, captured, graphs, freed = single_graph_against_eager(
                 lambda: build_image_training(cfg, spec), script)
     differ, worst, compared = compare_runs(graph_run, eager_run)
-    check(counts["u8norm"] == len(script) and captured == {"u8norm": 3} and graphs == 3
-          and freed, f"image single-step run: device launches {counts}, captured {captured}, "
+    check(counts["u8norm"] == len(script) and without_convs(captured) == {"u8norm": 3}
+          and graphs == 3 and freed, f"image single-step run: device launches {counts}, captured {captured}, "
           f"{graphs} graphs, vanilla graphs freed {freed}")
     check(not differ, f"image single-step graph against eager steps: {len(differ)} of {compared} "
           f"tensors differ (first {differ[:6]}), max |diff| {worst!r}")
@@ -2443,8 +2635,8 @@ def phase_train_image(device, card: str, results_dir: str):
     check(summary["steps"] == state.step == steps, f"image run took {summary['steps']} steps")
     check(counts["u8norm"] == steps, f"u8norm launched {counts['u8norm']} times in {steps} steps "
           f"(eager warm-up steps plus graph replays)")
-    check(captured == {"u8norm": 2}, f"the vanilla and intro graphs recorded {captured}, "
-          f"expected one u8norm launch each")
+    check(without_convs(captured) == {"u8norm": 2}, f"the vanilla and intro graphs recorded "
+          f"{captured}, expected one u8norm launch each")
     check(counts["chamfer_nearest"] == counts["bias_act_norm_fwd"] == counts["bias_act_norm_bwd"]
           == 0, f"the image path launched another kernel: {counts}")
     last = summary["last_metrics"]
@@ -2469,7 +2661,7 @@ def phase_train_image(device, card: str, results_dir: str):
     check(summary1["steps"] == state.step == steps and counts1["u8norm"] == steps,
           f"image run at scan_steps 1: {summary1['steps']} steps, u8norm launches "
           f"{counts1['u8norm']} (expected one a step)")
-    check(graphs == 2 and captured1 == {"u8norm": 2},
+    check(graphs == 2 and without_convs(captured1) == {"u8norm": 2},
           f"image run at scan_steps 1: {graphs} graphs captured recording {captured1}; expected "
           f"the vanilla and the intro graph, one u8norm launch each")
     check(all(math.isfinite(v) for v in summary1["last_metrics"].values()),
@@ -2628,7 +2820,7 @@ def phase_bootstrap_image(device, results_dir: str):
     torch.cuda.synchronize()
     steps = IMAGE_N // cfg.batch_size
     check(summary["steps"] == steps and read_counts()["u8norm"] == steps
-          and captured_counts() == {"u8norm": 1},
+          and without_convs(captured_counts()) == {"u8norm": 1},
           f"bootstrap: {summary['steps']} steps, {read_counts()['u8norm']} u8norm launches, "
           f"{captured_counts()} recorded in captures")
     online, target = state.decoder.state_dict(), state.target_decoder.state_dict()
@@ -2662,8 +2854,8 @@ def phase_bootstrap_image(device, results_dir: str):
         graph_run, eager_run, counts, captured, graphs, freed = single_graph_against_eager(
             build, script)
     differ, worst, compared = compare_runs(graph_run, eager_run)
-    check(counts["u8norm"] == len(script) and captured == {"u8norm": 2} and graphs == 2 and freed,
-          f"bootstrap single-step run: device launches {counts}, captured {captured}, {graphs} "
+    check(counts["u8norm"] == len(script) and without_convs(captured) == {"u8norm": 2}
+          and graphs == 2 and freed, f"bootstrap single-step run: device launches {counts}, captured {captured}, {graphs} "
           f"graphs, vanilla graphs freed {freed}")
     check(not differ, f"bootstrap single-step graph against eager steps, a sync between "
           f"replays: {len(differ)} of {compared} tensors differ (first {differ[:6]}), max |diff| "
@@ -2919,7 +3111,7 @@ def phase_fid(device, card: str, results_dir: str):
     check(summary["steps"] == steps and counts["u8norm"] == steps + real_batches,
           f"u8norm launched {counts['u8norm']} times: {steps} steps + {real_batches} real FID "
           "batches expected")
-    check(captured == {"u8norm": 1}, f"captures recorded {captured}")
+    check(without_convs(captured) == {"u8norm": 1}, f"captures recorded {captured}")
     check(math.isfinite(summary["best_fid"]), f"best FID {summary['best_fid']}")
     images = [2 * FID_IMAGES, FID_IMAGES]  # the first call also takes the real statistics
     how = {True: "by scipy: Newton-Schulz not finite", False: "by Newton-Schulz"}
@@ -3302,7 +3494,7 @@ def phase_remat_image(device, card: str):
         mp = [plain(sp, xs[i:i + IMAGE_SCAN])[1] for i in range(0, n, IMAGE_SCAN)]
         torch.cuda.synchronize()
     plain_run = (sp, {k: torch.cat([m[k] for m in mp]) for k in mp[0]})
-    check(counts["u8norm"] == n and captured == {"u8norm": 1},
+    check(counts["u8norm"] == n and without_convs(captured) == {"u8norm": 1},
           f"remat K-step run: device launches {counts}, captured {captured}")
     differ, worst, compared = compare_runs(graph_run, eager_run)
     check(not differ, f"remat image graph against eager: {len(differ)} of {compared} tensors "
@@ -3320,8 +3512,8 @@ def phase_remat_image(device, card: str):
         graph_run, eager_run, counts1, captured1, graphs1, freed = single_graph_against_eager(
             lambda: build_image_training(dataclasses.replace(cfg, remat=True), spec), script)
     differ, worst, compared1 = compare_runs(graph_run, eager_run)
-    check(counts1["u8norm"] == len(script) and captured1 == {"u8norm": 3} and graphs1 == 3
-          and freed, f"remat single-step run: device launches {counts1}, captured {captured1}, "
+    check(counts1["u8norm"] == len(script) and without_convs(captured1) == {"u8norm": 3}
+          and graphs1 == 3 and freed, f"remat single-step run: device launches {counts1}, captured {captured1}, "
           f"{graphs1} graphs, vanilla graphs freed {freed}")
     check(not differ, f"remat image single-step graph against eager: {len(differ)} of "
           f"{compared1} tensors differ (first {differ[:6]}), max |diff| {worst!r}")
@@ -4087,7 +4279,8 @@ def main() -> int:
     worst, times = phase_norm_kernels(device)
     print(norm_line(worst, times, peaks), flush=True)
     blur_record = phase_blur(device, peaks)
-    lap("kernels chamfer, fused norm and blur")
+    conv_record = phase_conv(device, peaks)
+    lap("kernels chamfer, fused norm, blur and conv")
     # the trainers' checkpoints (~100 MB for 3D, ~0.65 GB for style) go to
     # directories removed afterwards
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
@@ -4120,6 +4313,7 @@ def main() -> int:
     phase_image_routes(device, dataclasses.replace(cfg_image, scan_steps=1))
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
         phase_train_folder(device, card, results_dir)
+    counts_conv = phase_conv_step(device, card)
     lap("image")
     phase_graph_image(device)
     with tempfile.TemporaryDirectory(prefix="results_chip_smoke_", dir=ROOT) as results_dir:
@@ -4153,7 +4347,8 @@ def main() -> int:
         rec["launches"] = counts_style[rec["name"]]
     blur_record["launches"] = counts_style["blur3x3"]
     u8["launches"] = counts_image["u8norm"]
-    records += [blur_record, u8]
+    conv_record["launches"] = counts_conv
+    records += [blur_record, u8, conv_record]
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

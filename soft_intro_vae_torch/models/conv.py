@@ -9,10 +9,15 @@ nearest-upsampling decoder, an optional conditional concat.
 The nets run channels-last, the JAX package's NHWC (its models/conv.py is
 "NHWC layout throughout"): each net converts its parameters to
 ``torch.channels_last`` when it is built, the decoder makes its FC output
-channels-last, and the step's input (ops/u8norm.py) comes so; cuDNN then runs
-the convolutions as NHWC implicit GEMMs with no layout transposes around
-them. Logical shapes stay (B, C, H, W), and the encoder flattens in the
-reference's (C, H, W) order, so ``fc`` keeps the reference's weight.
+channels-last, and the step's input (ops/u8norm.py) comes so. Every conv is
+a ``Conv2d`` whose route ``ops/conv_f32.py`` chooses from the call: in
+float32 with cuDNN's TF32 off (the CelebA-HQ and CIFAR-10 configurations) the
+hand-written NHWC implicit GEMMs run the forward and both gradients, with no
+layout transposes; with TF32 on (the trainer's default) or in bfloat16 cuDNN
+runs them on its tensor-core NHWC kernels (with TF32 off cuDNN would pick
+FFT and NCHW float32 kernels and transpose around them); on the CPU
+``F.conv2d``. Logical shapes stay (B, C, H, W), and the encoder flattens in
+the reference's (C, H, W) order, so ``fc`` keeps the reference's weight.
 
 The module names are the reference's, so a reference
 ``.pth`` state_dict loads strictly and ``utils/torch_compat.py`` of the JAX
@@ -37,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from soft_intro_vae_torch.models.remat import current_frame
+from soft_intro_vae_torch.ops import conv_f32
 from soft_intro_vae_torch.parallel.collectives import batch_norm
 from soft_intro_vae_torch.parallel.mesh import current_world
 
@@ -44,11 +50,15 @@ Tensor = torch.Tensor
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d whose parameters take the input's dtype at use."""
+    """nn.Conv2d whose parameters take the input's dtype at use, on the
+    route ``ops/conv_f32.py conv2d`` picks (counted in its ``routes``)."""
 
     def forward(self, x: Tensor) -> Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        if self.padding_mode != "zeros":  # not the nets' (they pad with zeros)
+            return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return conv_f32.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                               self.dilation, self.groups)
 
 
 class RoutedBatchNorm:

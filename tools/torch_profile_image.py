@@ -50,6 +50,7 @@ TRANSPOSES = ("nchwtonhwc", "nhwctonchw")
 # kernel name substring -> family, first match wins
 FAMILIES = (
     ("u8norm_kernel", "u8norm kernel (hand-written)"),
+    ("conv_f32_", "conv kernels (hand-written)"),
     *((key, "layout transposes") for key in TRANSPOSES),
     ("direct_copy_kernel", "copies (ATen copy_)"),
     ("batch_norm", "batch norm"),
